@@ -1,0 +1,195 @@
+"""The port's model against the reference's, on the CPU at the smoke size.
+
+Both packages run from the same parameters (the reference's ``init_params``,
+loaded with ``params_from_jax``) and the same numpy-made tokens: prefill
+logits and cache, then three decode steps, at f32 (rtol=atol=1e-4 for every
+element) and at the default bf16 compute (2e-2: bf16 rounds at other points
+in the two frameworks, for example the reference's SwiGLU runs in bf16 and
+the port's in f32). At bf16 the logits are held element by element; the KV
+cache, whose entries reach |x| ~ 20 where one bf16 step is 0.125, is held to
+2e-2 of its largest entry, because both packages are that far from the f32
+result there.
+Configs are compared field by field.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.configs import get_smoke_config as j_get_smoke_config  # noqa: E402
+from repro.models import forward as j_forward  # noqa: E402
+from repro.models import init_params as j_init_params  # noqa: E402
+from repro.models import model_spec as j_model_spec  # noqa: E402
+from repro.models.transformer import init_cache as j_init_cache  # noqa: E402
+from repro.runtime import make_decode_step as j_make_decode_step  # noqa: E402
+from repro.runtime import make_prefill_step as j_make_prefill_step  # noqa: E402
+from repro_torch.configs import ARCHS, get_config, get_smoke_config  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    forward,
+    init_cache,
+    init_params,
+    model_spec,
+    params_from_jax,
+)
+from repro_torch.models.layers import tree_leaves  # noqa: E402
+from repro_torch.runtime import make_decode_step, make_prefill_step  # noqa: E402
+
+ARCH = "qwen3-0.6b"
+DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4), "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
+
+
+def _assert_cache_close(actual, desired, tol, scaled, msg=""):
+    a, d = _np(actual), _np(desired)
+    if scaled:
+        err, scale = np.abs(a - d).max(), np.abs(d).max()
+        assert err <= tol * scale, f"{msg}: max abs err {err} > {tol} * max |x| {scale}"
+    else:
+        np.testing.assert_allclose(a, d, rtol=tol, atol=tol, err_msg=msg)
+
+
+def _flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+@pytest.fixture(scope="module")
+def ref_params():
+    cfg = j_get_smoke_config(ARCH)
+    params = j_init_params(jax.random.PRNGKey(0), j_model_spec(cfg))
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+# ---------------------------------------------------------------------------
+# Config parity
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("getters", [(j_get_config, get_config), (j_get_smoke_config, get_smoke_config)],
+                         ids=["full", "smoke"])
+def test_config_matches_reference(getters):
+    j_cfg, t_cfg = getters[0](ARCH), getters[1](ARCH)
+    j_fields = [f.name for f in dataclasses.fields(j_cfg)]
+    assert j_fields == [f.name for f in dataclasses.fields(t_cfg)]
+    for name in j_fields:
+        a, b = getattr(j_cfg, name), getattr(t_cfg, name)
+        if name in ("dtype", "param_dtype"):
+            assert jnp.dtype(a).name == str(b).removeprefix("torch."), name
+        else:
+            assert a == b, name
+    assert t_cfg.resolved_head_dim == j_cfg.resolved_head_dim
+    assert t_cfg.padded_vocab == j_cfg.padded_vocab
+    assert t_cfg.causal == j_cfg.causal and t_cfg.has_decode == j_cfg.has_decode
+    assert t_cfg.param_count() == j_cfg.param_count()
+
+
+def test_unported_archs_raise():
+    for arch in ARCHS:
+        if arch != ARCH:
+            with pytest.raises(NotImplementedError, match="not yet ported"):
+                get_config(arch)
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def test_params_from_jax_round_trip(ref_params):
+    port = params_from_jax(ref_params, "cpu")
+    want, got = _flatten(ref_params), _flatten(port)
+    assert sorted(want) == sorted(got)
+    assert got["layers/attn/wq"].shape == (2, 64, 4, 16)  # (L, d, H, hd)
+    for key, arr in want.items():
+        assert tuple(got[key].shape) == arr.shape, key
+        np.testing.assert_array_equal(got[key].numpy(), arr, err_msg=key)
+    # bf16 leaves keep their bits
+    bf = jax.tree_util.tree_map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)), ref_params)
+    emb = params_from_jax(bf, "cpu")["embed"]["embedding"]
+    assert emb.dtype == torch.bfloat16
+    np.testing.assert_array_equal(emb.float().numpy(), np.asarray(bf["embed"]["embedding"], np.float32))
+
+
+def test_init_params_matches_reference_in_distribution(ref_params):
+    cfg = get_smoke_config(ARCH).scaled(vocab=4096)
+    gen = torch.Generator().manual_seed(0)
+    port = init_params(gen, model_spec(cfg), device="cpu")
+    ref = jax.tree_util.tree_map(np.asarray, j_init_params(jax.random.PRNGKey(1), j_model_spec(
+        j_get_smoke_config(ARCH).scaled(vocab=4096))))
+    got, want = _flatten(port), _flatten(ref)
+    assert sorted(got) == sorted(want)
+    for key, arr in want.items():
+        t = got[key]
+        assert tuple(t.shape) == arr.shape and t.dtype == torch.float32, key
+        if arr.std() == 0:  # norm scales: ones
+            np.testing.assert_array_equal(t.numpy(), arr, err_msg=key)
+        else:
+            assert abs(float(t.std()) / float(arr.std()) - 1) < 0.1, key
+            assert abs(float(t.mean())) < 0.1 * float(arr.std()) + 1e-3, key
+    assert len(tree_leaves(port)) == len(jax.tree_util.tree_leaves(ref))
+
+
+# ---------------------------------------------------------------------------
+# Forward, prefill and decode against the reference
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_prefill_then_decode_matches_reference(ref_params, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    j_cfg = j_get_smoke_config(ARCH).scaled(dtype=jdt)
+    t_cfg = get_smoke_config(ARCH).scaled(dtype=tdt)
+    port_params = params_from_jax(ref_params, "cpu")
+    rng = np.random.default_rng(0)
+    b, s, max_seq = 2, 20, 48
+    toks = rng.integers(0, j_cfg.vocab, size=(b, s)).astype(np.int32)
+
+    j_logits, j_cache = jax.jit(j_make_prefill_step(j_cfg))(
+        ref_params, {"tokens": jnp.asarray(toks)}, j_init_cache(j_cfg, b, max_seq))
+    logits, cache = make_prefill_step(t_cfg)(
+        port_params, {"tokens": torch.as_tensor(toks, dtype=torch.long)},
+        init_cache(t_cfg, b, max_seq, device="cpu"))
+    assert logits.shape == j_logits.shape == (b, 1, j_cfg.padded_vocab)
+    np.testing.assert_allclose(_np(logits), _np(j_logits), rtol=tol, atol=tol)
+    scaled = dtype == "bfloat16"
+    for leaf in ("k", "v"):
+        assert cache["layers"][leaf].dtype == tdt
+        _assert_cache_close(cache["layers"][leaf], j_cache["layers"][leaf], tol, scaled, leaf)
+
+    j_decode = jax.jit(j_make_decode_step(j_cfg))
+    decode = make_decode_step(t_cfg)
+    for step in range(3):
+        nt = rng.integers(0, j_cfg.vocab, size=(b, 1)).astype(np.int32)
+        j_logits, j_cache = j_decode(ref_params, jnp.asarray(nt), j_cache, jnp.asarray(s + step, jnp.int32))
+        logits, cache = decode(port_params, torch.as_tensor(nt, dtype=torch.long), cache, s + step)
+        assert logits.shape == (b, 1, j_cfg.padded_vocab)
+        np.testing.assert_allclose(_np(logits), _np(j_logits), rtol=tol, atol=tol, err_msg=f"step {step}")
+        for leaf in ("k", "v"):
+            _assert_cache_close(cache["layers"][leaf], j_cache["layers"][leaf], tol, scaled,
+                                f"{leaf}, step {step}")
+
+
+def test_forward_without_cache_matches_reference(ref_params):
+    j_cfg = j_get_smoke_config(ARCH).scaled(dtype=jnp.float32)
+    t_cfg = get_smoke_config(ARCH).scaled(dtype=torch.float32)
+    toks = np.random.default_rng(3).integers(0, j_cfg.vocab, size=(2, 37)).astype(np.int32)
+    j_logits, _, _ = jax.jit(lambda p, t: j_forward(p, j_cfg, tokens=t))(ref_params, jnp.asarray(toks))
+    logits, cache = forward(params_from_jax(ref_params, "cpu"), t_cfg,
+                            torch.as_tensor(toks, dtype=torch.long))
+    assert cache is None
+    assert logits.shape == (2, 37, j_cfg.padded_vocab)
+    np.testing.assert_allclose(_np(logits), _np(j_logits), rtol=1e-4, atol=1e-4)
