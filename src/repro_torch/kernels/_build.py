@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NAMES: Tuple[str, ...] = ("rmsnorm", "swiglu", "flash_attention")
+NAMES: Tuple[str, ...] = ("rmsnorm", "swiglu", "flash_attention", "quorum_compare")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -2,7 +2,7 @@
 from .config import ModelConfig
 from .convert import params_from_jax
 from .layers import ParamSpec, count_params, init_params
-from .transformer import cache_spec, forward, init_cache, model_spec
+from .transformer import cache_spec, forward, init_cache, model_spec, train_loss
 
 __all__ = [
     "ModelConfig",
@@ -14,4 +14,5 @@ __all__ = [
     "init_params",
     "model_spec",
     "params_from_jax",
+    "train_loss",
 ]

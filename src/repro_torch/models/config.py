@@ -87,8 +87,24 @@ class ModelConfig:
     def scaled(self, **overrides: Any) -> "ModelConfig":
         return dataclasses.replace(self, **overrides)
 
+    # ---- parameter / FLOP accounting ----
+
     def param_count(self) -> int:
         from .layers import count_params
         from .transformer import model_spec
 
         return count_params(model_spec(self))
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k + shared experts only)."""
+        total = self.param_count()
+        if self.n_experts and self.top_k:
+            per_expert = 3 * self.d_model * self.d_expert
+            inactive = (self.n_experts - self.top_k) * per_expert * self.n_layers
+            return total - inactive
+        return total
+
+    def train_flops_per_token(self) -> float:
+        """MODEL_FLOPS/token for a train step: 6·N_active (fwd+bwd). The grid
+        trainer's ``est_flop_count`` per job, and so all credit, comes from it."""
+        return 6.0 * self.active_param_count()

@@ -44,9 +44,23 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
 
 
 def tree_leaves(tree: Any) -> list:
+    """Leaves in sorted-key order: jax's leaf order for a tree of dicts."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(tree: Any, leaves: list) -> Any:
+    """The tree of ``tree``'s structure with ``leaves`` (in ``tree_leaves``
+    order) in place of its own."""
+    it = iter(leaves)
+
+    def build(t: Any) -> Any:
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(tree)
 
 
 def init_params(
@@ -150,6 +164,35 @@ def embed_tokens(params: Dict[str, torch.Tensor], tokens: torch.Tensor, compute_
 def unembed_logits(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """(B, S, d) -> (B, S, V_padded)."""
     return x @ params["embedding"].to(x.dtype).T
+
+
+def cross_entropy_from_logits(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    valid_vocab: int = 0,
+    reduce: bool = True,
+) -> torch.Tensor:
+    """Mean CE over tokens, in f32; logits at or past ``valid_vocab`` (the
+    padded vocabulary rows) are masked with -1e30 first. With
+    ``reduce=False``, the per-token (masked) NLL. The label's logit is
+    gathered: the reference's one-hot contraction sums it with zeros only,
+    which gives the same value."""
+    logits = logits.float()
+    if valid_vocab and valid_vocab < logits.shape[-1]:
+        viota = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(viota < valid_vocab, logits, -1e30)
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m.squeeze(-1)
+    ll = logits.gather(-1, labels.long()[..., None]).squeeze(-1)
+    nll = lse - ll
+    if mask is not None:
+        nll = nll * mask
+    if not reduce:
+        return nll
+    if mask is not None:
+        return nll.sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()
 
 
 # ---------------------------------------------------------------------------

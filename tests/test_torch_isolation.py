@@ -40,7 +40,9 @@ def test_imports_nothing_of_jax_or_repro():
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20  # every module of the package was walked
+    # every module of the package was walked: 54 with the training slice
+    # (core, data, optim, quorum_compare, grid_runtime)
+    assert int(proc.stdout.split()[-1]) >= 54
 
 
 def test_entry_points_raise_without_card():

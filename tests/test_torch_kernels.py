@@ -3,7 +3,13 @@
 On the CPU, each kernel's plain version (``repro_torch/kernels/*/ref.py``,
 which every wrapper takes for a CPU tensor) is held against the reference's
 Pallas kernel run in interpret mode and against its jnp oracle, on the shape
-and dtype sweeps of ``tests/test_kernels.py``, with its tolerances.
+and dtype sweeps of ``tests/test_kernels.py``, with its tolerances. The
+backward kernels have no Pallas counterpart (the reference differentiates
+its jnp functions with XLA): their plain versions are held against
+``jax.vjp`` of ``repro.models.layers.rms_norm``, ``repro.models.layers.swiglu``
+and ``repro.kernels.flash_attention.ref.attention_ref``, at f32 to 2e-5 and
+bf16 to 2e-2. quorum_compare's count is held bit-equal and its sum of
+squares to rtol 1e-5.
 
 Cases marked ``gpu`` hold each CUDA kernel against its plain version on the
 card; they skip without a card of capability 9.0 or newer. JAX is imported
@@ -18,13 +24,17 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+hypothesis = pytest.importorskip("hypothesis")  # optional dep: see requirements-dev.txt
+from hypothesis import given, settings, strategies as st  # noqa: E402
 
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref  # noqa: E402
+from repro_torch.kernels.quorum_compare import ops as quorum_ops  # noqa: E402
+from repro_torch.kernels.quorum_compare.ref import quorum_compare_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.swiglu import ops as swiglu_ops  # noqa: E402
-from repro_torch.kernels.swiglu.ref import swiglu_ref  # noqa: E402
+from repro_torch.kernels.swiglu.ref import swiglu_bwd_ref, swiglu_ref  # noqa: E402
 
 # (b, s, h, kv, d, causal, dtype) — the sweep of tests/test_kernels.py
 FLASH_CASES = [
@@ -37,7 +47,11 @@ FLASH_CASES = [
 ]
 RMS_SHAPES = [(4, 256), (3, 77, 256), (2, 5, 8, 128)]
 SWIGLU_SHAPES = [(16, 128), (5, 100, 128), (1, 7, 384)]
+# the backward sweep adds GQA with D=48 (ragged lanes) to FLASH_CASES
+FLASH_BWD_CASES = FLASH_CASES + [(1, 130, 4, 2, 48, False, "float32"),
+                                 (1, 130, 4, 2, 48, True, "bfloat16")]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -57,6 +71,10 @@ def ref():
     import jax.numpy as jnp
     from repro.kernels.flash_attention.ops import flash_attention
     from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
+    from repro.kernels.quorum_compare.ops import quorum_compare
+    from repro.kernels.quorum_compare.ref import quorum_compare_ref as j_quorum_compare_ref
+    from repro.models.layers import rms_norm as j_rms_norm
+    from repro.models.layers import swiglu as j_swiglu
     from repro.kernels.rmsnorm.ops import rmsnorm
     from repro.kernels.rmsnorm.ref import rmsnorm_ref as j_rmsnorm_ref
     from repro.kernels.swiglu.ops import swiglu
@@ -65,6 +83,8 @@ def ref():
     return SimpleNamespace(
         jax=jax, jnp=jnp, flash_attention=flash_attention, attention_ref=j_attention_ref,
         rmsnorm=rmsnorm, rmsnorm_ref=j_rmsnorm_ref, swiglu=swiglu, swiglu_ref=j_swiglu_ref,
+        quorum_compare=quorum_compare, quorum_compare_ref=j_quorum_compare_ref,
+        rms_norm=j_rms_norm, model_swiglu=j_swiglu,
     )
 
 
@@ -143,6 +163,165 @@ class TestPlainAgainstReference:
 
 
 # ---------------------------------------------------------------------------
+# Backward plain versions against jax.vjp, and quorum_compare (CPU)
+# ---------------------------------------------------------------------------
+
+
+def _close(actual, desired, tol, msg=""):
+    np.testing.assert_allclose(_np32(actual), np.asarray(desired, np.float32), atol=tol, rtol=tol,
+                               err_msg=msg)
+
+
+class TestBackwardAgainstReference:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", RMS_SHAPES)
+    def test_rmsnorm_bwd(self, ref, shape, dtype):
+        x32, sc, dy32 = _normal(7, shape), _normal(1, (shape[-1],)), _normal(2, shape)
+        jdt = getattr(ref.jnp, dtype)
+        jx, jdy = (ref.jnp.asarray(a).astype(jdt) for a in (x32, dy32))
+        _, vjp = ref.jax.vjp(lambda x, s: ref.rms_norm({"scale": s}, x), jx, ref.jnp.asarray(sc))
+        want_dx, want_ds = vjp(jdy)
+        tx, tdy = (torch.from_numpy(a).to(TORCH_DT[dtype]) for a in (x32, dy32))
+        launches = rms_ops.launches_bwd
+        dx, ds = rms_ops.rmsnorm_bwd(tx, torch.from_numpy(sc), tdy)
+        assert rms_ops.launches_bwd == launches  # the CPU path launches nothing
+        assert dx.dtype == TORCH_DT[dtype] and ds.dtype == torch.float32
+        tol = BWD_TOL[dtype]
+        _close(dx, want_dx, tol, "dx")
+        _close(ds, want_ds, tol, "dscale")
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", SWIGLU_SHAPES)
+    def test_swiglu_bwd(self, ref, shape, dtype):
+        g32, u32, dh32 = _normal(7, shape), _normal(3, shape), _normal(4, shape)
+        jdt = getattr(ref.jnp, dtype)
+        jg, ju, jdh = (ref.jnp.asarray(a).astype(jdt) for a in (g32, u32, dh32))
+        _, vjp = ref.jax.vjp(ref.model_swiglu, jg, ju)
+        want_dg, want_du = vjp(jdh)
+        tg, tu, tdh = (torch.from_numpy(a).to(TORCH_DT[dtype]) for a in (g32, u32, dh32))
+        launches = swiglu_ops.launches_bwd
+        dg, du = swiglu_ops.swiglu_bwd(tg, tu, tdh)
+        assert swiglu_ops.launches_bwd == launches
+        tol = BWD_TOL[dtype]
+        _close(dg, want_dg, tol, "dgate")
+        _close(du, want_du, tol, "dup")
+
+    @pytest.mark.parametrize("b,s,h,kv,d,causal,dtype", FLASH_BWD_CASES)
+    def test_flash_bwd(self, ref, b, s, h, kv, d, causal, dtype):
+        shapes = [(b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d)]
+        q32, k32, v32, do32 = (_normal(i, shp) for i, shp in enumerate(shapes))
+        jdt = getattr(ref.jnp, dtype)
+        # the reference's oracle takes (B, H, S, D)
+        jq, jk, jv, jdo = (ref.jnp.moveaxis(ref.jnp.asarray(a).astype(jdt), 1, 2)
+                           for a in (q32, k32, v32, do32))
+        _, vjp = ref.jax.vjp(lambda q, k, v: ref.attention_ref(q, k, v, causal=causal), jq, jk, jv)
+        want = [ref.jnp.moveaxis(g, 1, 2) for g in vjp(jdo)]
+        tq, tk, tv, tdo = (torch.from_numpy(a).to(TORCH_DT[dtype]) for a in (q32, k32, v32, do32))
+        launches = flash_ops.launches, flash_ops.launches_bwd
+        out, lse = flash_ops.flash_attention_fwd(tq, tk, tv, causal=causal, with_lse=True)
+        assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+        grads = flash_ops.flash_attention_bwd(tq, tk, tv, out, lse, tdo, causal=causal)
+        assert (flash_ops.launches, flash_ops.launches_bwd) == launches
+        tol = BWD_TOL[dtype]
+        for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+            assert got.dtype == TORCH_DT[dtype]
+            _close(got, w, tol, name)
+
+    def test_flash_lse_is_the_scores_logsumexp(self):
+        q, k, v = (torch.from_numpy(_normal(i, (1, 70, 4, 16))) for i in range(3))
+        kh, vh = k[:, :, :2].contiguous(), v[:, :, :2].contiguous()
+        out, lse = flash_ops.flash_attention_fwd(q, kh, vh, causal=True, with_lse=True)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kh.repeat_interleave(2, dim=2)) / 4.0
+        s = s.masked_fill(torch.ones(70, 70, dtype=torch.bool).triu(1), -1e30)
+        torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-5, rtol=1e-5)
+        assert flash_ops.flash_attention_fwd(q, kh, vh, causal=True)[1] is None  # serving: no lse
+        torch.testing.assert_close(out, flash_ops.flash_attention(q, kh, vh, causal=True))
+
+    @pytest.mark.parametrize("op", ["rmsnorm", "swiglu", "flash_attention"])
+    def test_autograd_runs_the_plain_backward_on_the_cpu(self, op):
+        # the autograd Functions' backward is the plain backward on the CPU
+        x = torch.from_numpy(_normal(5, (2, 9, 4, 16))).requires_grad_()
+        if op == "rmsnorm":
+            sc = torch.from_numpy(_normal(6, (16,))).requires_grad_()
+            y = rms_ops.rmsnorm(x, sc)
+            inputs, plain = (x, sc), lambda: rmsnorm_ref(x, sc)
+        elif op == "swiglu":
+            u = torch.from_numpy(_normal(6, (2, 9, 4, 16))).requires_grad_()
+            y = swiglu_ops.swiglu(x, u)
+            inputs, plain = (x, u), lambda: swiglu_ref(x, u)
+        else:
+            kv = torch.from_numpy(_normal(6, (2, 9, 2, 16))).requires_grad_()
+            y = flash_ops.flash_attention(x, kv, kv * 0.5, causal=True)
+            inputs = (x, kv)
+            plain = lambda: attention_ref(x.movedim(1, 2), kv.movedim(1, 2), (kv * 0.5).movedim(1, 2),  # noqa: E731
+                                          causal=True).movedim(1, 2)
+        dy = torch.from_numpy(_normal(8, tuple(y.shape)))
+        got = torch.autograd.grad(y, inputs, dy)
+        want = torch.autograd.grad(plain(), inputs, dy)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
+
+
+class TestQuorumCompareAgainstReference:
+    # each new length compiles the Pallas kernel anew: fewer examples than
+    # tests/test_kernels.py's 15 keep this file's run short
+    @settings(max_examples=8, deadline=None)
+    @given(
+        n=st.integers(min_value=10, max_value=5000),
+        bad_frac=st.floats(min_value=0.0, max_value=0.2),
+    )
+    def test_bad_count_matches_pallas_and_oracle(self, ref, n, bad_frac):
+        rng = np.random.default_rng(n)
+        a = rng.standard_normal(n).astype(np.float32)
+        b = a.copy()
+        n_bad = int(n * bad_frac)
+        if n_bad:
+            b[:n_bad] += 1.0
+        ja, jb = ref.jnp.asarray(a), ref.jnp.asarray(b)
+        launches = quorum_ops.launches
+        nb, sq = quorum_ops.quorum_compare(torch.from_numpy(a), torch.from_numpy(b),
+                                           rtol=1e-5, atol=1e-6)
+        assert quorum_ops.launches == launches
+        assert nb.dtype == torch.int64 and int(nb) == n_bad
+        for want_nb, want_sq in (
+            ref.quorum_compare(ja, jb, rtol=1e-5, atol=1e-6, interpret=True),
+            ref.quorum_compare_ref(ja, jb, rtol=1e-5, atol=1e-6),
+        ):
+            assert int(nb) == int(float(want_nb))
+            np.testing.assert_allclose(float(sq), float(want_sq), rtol=1e-5)
+
+    def test_count_is_numpy_isclose_at_the_boundary(self):
+        # b spans magnitudes; a sits one f32 step either side of b's tolerance
+        rtol, atol = 1e-4, 1e-6
+        b = (np.random.default_rng(0).standard_normal(4096) *
+             np.logspace(-8, 3, 4096)).astype(np.float32)
+        tol = np.float32(atol) + np.float32(rtol) * np.abs(b)
+        a = np.concatenate([b + tol, np.nextafter(b + tol, np.float32(np.inf)),
+                            np.nextafter(b - tol, np.float32(-np.inf)), b - tol]).astype(np.float32)
+        bb = np.concatenate([b] * 4)
+        want = int(np.count_nonzero(~np.isclose(a, bb, rtol=rtol, atol=atol)))
+        nb, _ = quorum_ops.quorum_compare(torch.from_numpy(a), torch.from_numpy(bb),
+                                          rtol=rtol, atol=atol)
+        assert int(nb) == want and 0 < want < a.size
+
+    def test_plain_version_is_the_reference_oracle(self):
+        a = _normal(1, (37, 11))
+        b = a + _normal(2, (37, 11)) * 1e-3
+        nb, sq = quorum_compare_ref(torch.from_numpy(a), torch.from_numpy(b), 1e-3, 1e-4)
+        diff = np.abs(a - b)
+        assert int(nb) == int(np.count_nonzero(diff > np.float32(1e-4) + np.float32(1e-3) * np.abs(b)))
+        np.testing.assert_allclose(float(sq), float(np.sum(diff.astype(np.float64) ** 2)), rtol=1e-6)
+
+    def test_tree_agreement(self):
+        a = {"w": torch.ones((100, 7)), "b": torch.zeros((13,))}
+        assert quorum_ops.tree_quorum_agree(a, {k: v + 1e-9 for k, v in a.items()})
+        w = torch.ones((100, 7))
+        w[0, 0] = 5.0
+        assert not quorum_ops.tree_quorum_agree(a, {"w": w, "b": torch.zeros((13,))})
+        assert not quorum_ops.tree_quorum_agree(a, {"w": torch.ones((100, 7))})  # missing leaf
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels against their plain versions (on the card)
 # ---------------------------------------------------------------------------
 
@@ -199,3 +378,71 @@ class TestKernelsOnCard:
         out = flash_ops.flash_attention(q, k, v, causal=True)
         want = flash_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
         torch.testing.assert_close(out, want, atol=0, rtol=0)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", RMS_SHAPES + [(4096, 1024), (65536, 128), (5, 77), (3, 1024)])
+    def test_rmsnorm_bwd(self, cuda, shape, dtype):
+        x, dy = (torch.from_numpy(_normal(i, shape)).to(cuda, TORCH_DT[dtype]) for i in (7, 2))
+        sc = torch.from_numpy(_normal(1, (shape[-1],))).to(cuda)
+        launches = rms_ops.launches_bwd
+        dx, ds = rms_ops.rmsnorm_bwd(x, sc, dy)
+        torch.cuda.synchronize()
+        assert rms_ops.launches_bwd == launches + 1
+        want_dx, want_ds = rmsnorm_bwd_ref(x, sc, dy)
+        tol = BWD_TOL[dtype]
+        torch.testing.assert_close(dx.float(), want_dx.float(), atol=tol, rtol=tol)
+        # dscale sums every row: f32 rounding grows with the row count
+        torch.testing.assert_close(ds, want_ds, atol=1e-3, rtol=1e-4)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", SWIGLU_SHAPES + [(4096, 3072)])
+    def test_swiglu_bwd(self, cuda, shape, dtype):
+        g, u, dh = (torch.from_numpy(_normal(i, shape)).to(cuda, TORCH_DT[dtype]) for i in (7, 3, 4))
+        launches = swiglu_ops.launches_bwd
+        dg, du = swiglu_ops.swiglu_bwd(g, u, dh)
+        torch.cuda.synchronize()
+        assert swiglu_ops.launches_bwd == launches + 1
+        tol = 1e-5 if dtype == "float32" else 2e-2
+        for got, want in zip((dg, du), swiglu_bwd_ref(g, u, dh)):
+            torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize(
+        "b,s,h,kv,d,causal,dtype",
+        FLASH_BWD_CASES + [(2, 2048, 16, 8, 128, True, "bfloat16"),
+                           (2, 97, 6, 3, 128, True, "float32")],
+    )
+    def test_flash_bwd(self, cuda, b, s, h, kv, d, causal, dtype):
+        shapes = [(b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d)]
+        q, k, v, do = (torch.from_numpy(_normal(i, shp)).to(cuda, TORCH_DT[dtype])
+                       for i, shp in enumerate(shapes))
+        out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
+        want_out, want_lse = attention_ref(q.movedim(1, 2), k.movedim(1, 2), v.movedim(1, 2),
+                                           causal=causal, return_lse=True)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+        launches = flash_ops.launches_bwd
+        grads = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_ops.launches_bwd == launches + 1
+        want = attention_bwd_ref(q.movedim(1, 2), k.movedim(1, 2), v.movedim(1, 2),
+                                 out.movedim(1, 2), lse, do.movedim(1, 2), causal=causal)
+        tol = BWD_TOL[dtype]
+        for got, w in zip(grads, want):
+            torch.testing.assert_close(got.float(), w.movedim(1, 2).float(), atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("n", [1, 7, 4096, 1000003])
+    def test_quorum_compare(self, cuda, n, dtype):
+        a = torch.from_numpy(_normal(1, (n,))).to(cuda, TORCH_DT[dtype])
+        b = a.clone()
+        b[: n // 3] += 0.5
+        b[n // 2:] *= 1.00001
+        launches = quorum_ops.launches
+        nb, sq = quorum_ops.quorum_compare(a, b, rtol=1e-4, atol=1e-6)
+        torch.cuda.synchronize()
+        assert quorum_ops.launches == launches + 1
+        want_nb, want_sq = quorum_compare_ref(a, b, 1e-4, 1e-6)
+        assert int(nb) == int(want_nb)
+        torch.testing.assert_close(sq, want_sq, atol=1e-6, rtol=1e-5)
+        # a misaligned view takes the scalar loop
+        nb1, _ = quorum_ops.quorum_compare(a[1:], b[1:], rtol=1e-4, atol=1e-6)
+        assert int(nb1) == int(quorum_compare_ref(a[1:], b[1:], 1e-4, 1e-6)[0])
