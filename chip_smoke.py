@@ -6,7 +6,7 @@
 Phases, in order; the first failure ends the run with a non-zero exit:
 
 1. Card and build: print the card's name and power limit, turn TF32 off,
-   build the four kernel libraries from ``src/repro_torch/csrc`` (one nvcc
+   build the five kernel libraries from ``src/repro_torch/csrc`` (one nvcc
    per source, all at once) into ``build/kernels/``.
 2. Each kernel, forward and backward, against its plain PyTorch version on
    the card, at the serving and training paths' shapes in bf16 and f32, with
@@ -20,6 +20,10 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    launch cost included), and the least time the card could take (bytes at
    3.35 TB/s or operations at the peak rate of their type). quorum_compare
    also runs through the grid trainer's comparator on NaN and inf leaves.
+   The int8 quantize and dequantize kernels are held bit for bit (codes,
+   scales, and dequantized values at f32 and bf16) at the embedding
+   gradient's shape and at a ragged (28, 128) leaf; no single PyTorch call
+   computes the block-scaled int8 code, so they have no library time.
 3. Serve qwen3-0.6b at full width (28 layers, random weights from a seeded
    generator, bf16 compute) through ``BatchServer``: 8 ragged requests of
    64-700 prompt tokens, 32 new tokens each, EDF deadlines. Every kernel
@@ -37,10 +41,28 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 6. The card's f32 loss and gradients of one grad step (kernels) against the
    CPU's (plain versions): qwen3 widths at 2 layers, 1 x 256 tokens, the
    same parameters.
+7. Train qwen3-0.6b at full width through the plain training loop
+   (``runtime.train``): 3 steps of 2 x 2048 tokens with a checkpoint at
+   step 2 (params and AdamW moments, ~7.2 GB, under ``build/``, after
+   checking the free disk), then a second ``train`` call that restores it
+   and runs step 3 again: its loss must equal the first run's. Counters are
+   zeroed before the first call and read after it; the forward and
+   backward kernels must be non-zero. Save and restore seconds and bytes,
+   and the sha256 and npz-read seconds of the files measured alone.
+8. Compress the full-width gradient tree of one grad step (13 leaves,
+   596,180,992 elements) with ``compress_tree`` and decompress it with
+   ``decompress_tree``, counters zeroed before and read after (both int8
+   kernels non-zero): the payload and the decompressed tree equal the plain
+   versions' bit for bit, the worst error is at most one quantization step
+   of its leaf, and the wire bytes are about a quarter of f32's. Per tree:
+   wall, device and queued times, and the host time to enqueue a call.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
-numbers of this run (``launches``: the training run's counts, and for the
-forward kernels ``launches_serve``, the serving run's); the last line is
+numbers of this run (``launches``: the counts of the grid training run
+(phase 5) for the forward, backward and quorum kernels and of the
+compression run (phase 8) for the int8 kernels; ``launches_serve`` and
+``launches_train_loop``, the serving run's and the training loop's, where
+the kernel runs there); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA card, or without the repository's ``src/`` beside it, the
 script exits non-zero and prints no result.
@@ -49,8 +71,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -68,6 +93,9 @@ TRAIN_STEPS = 3
 TRAIN_SEQ = 2048
 TRAIN_BATCH = 2
 TRAIN_SHARDS = 2
+# the training-loop phase: 3 steps, a checkpoint at step 2
+LOOP_STEPS = 3
+LOOP_PERIOD = 2
 
 
 def log(msg: str) -> None:
@@ -184,6 +212,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+    from repro_torch.kernels.int8_quant import ops as int8_ops
+    from repro_torch.kernels.int8_quant.ref import int8_dequantize_ref, int8_quantize_ref
     from repro_torch.kernels.quorum_compare import ops as quorum_ops
     from repro_torch.kernels.quorum_compare.ref import quorum_compare_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -191,27 +221,31 @@ def main() -> int:
     from repro_torch.kernels.swiglu import ops as swiglu_ops
     from repro_torch.kernels.swiglu.ref import swiglu_bwd_ref, swiglu_ref
     from repro_torch.models import init_cache, init_params, model_spec
+    from repro_torch.checkpoint.checkpointer import _checksum as checkpoint_sha256
     from repro_torch.models.layers import tree_leaves, tree_map
-    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import AdamWConfig, compress_tree, compressed_bytes, decompress_tree
     from repro_torch.runtime import (BatchServer, GridTrainer, Request, ServeMetrics,
                                      grad_comparator, make_decode_step, make_grad_step,
-                                     make_prefill_step)
+                                     make_prefill_step, train)
 
     dev = torch.device("cuda")
     ops = {"rmsnorm": rms_ops, "swiglu": swiglu_ops, "flash_attention": flash_ops}
     bwd_ops = {"rmsnorm_bwd": rms_ops, "swiglu_bwd": swiglu_ops, "flash_attention_bwd": flash_ops}
 
     def counts():
-        """Every launch counter: forward, backward, quorum_compare."""
+        """Every launch counter: forward, backward, quorum_compare, int8."""
         out = {name: mod.launches for name, mod in ops.items()}
         out.update({name: mod.launches_bwd for name, mod in bwd_ops.items()})
         out["quorum_compare"] = quorum_ops.launches
+        out["int8_quantize"] = int8_ops.launches_quantize
+        out["int8_dequantize"] = int8_ops.launches_dequantize
         return out
 
     def zero_counts():
         for mod in (rms_ops, swiglu_ops, flash_ops):
             mod.launches = mod.launches_bwd = 0
         quorum_ops.launches = 0
+        int8_ops.launches_quantize = int8_ops.launches_dequantize = 0
 
     # ---- 1. card and build -------------------------------------------------
     smi = subprocess.run(
@@ -225,8 +259,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     nvcc_s = _build.build()
-    if len(nvcc_s) != 4:
-        raise AssertionError(f"built {sorted(nvcc_s)}, expected four libraries")
+    if len(nvcc_s) != 5:
+        raise AssertionError(f"built {sorted(nvcc_s)}, expected five libraries")
     log(f"[1] built {', '.join(nvcc_s)} in {time.perf_counter() - t0:.2f} s wall "
         f"(nvcc s: {json.dumps({k: round(v, 2) for k, v in nvcc_s.items()})})")
 
@@ -440,6 +474,37 @@ def main() -> int:
         f"NaN and inf leaves equal the CPU's")
     del qa, qb
 
+    # int8 quantize and dequantize, bit for bit (tolerance 0), at the
+    # embedding gradient's shape and at a ragged leaf (padded to 14 x 256,
+    # one tile of 14 rows); no PyTorch call computes this block-scaled code
+    def check_int8(shape, dtype, out_dtypes):
+        x = randn(*shape, dtype=dtype)
+        n = x.numel()
+        rows2d, br = int8_ops.to_rows(x)
+        rows, nb = rows2d.shape[0], rows2d.shape[0] // br
+        m = rows * int8_ops.LANES  # padded elements
+        desc = f"{tuple(shape)} -> ({rows}, 256) br {br}"
+        # bytes: x read, codes and scales written; operations: abs, max,
+        # divide, round, two clamps per element
+        rec_q = check("int8_quantize", desc, dtype, lambda x: int8_ops.int8_quantize(x),
+                      lambda x: int8_quantize_ref(*int8_ops.to_rows(x)), None, (x,), 0.0,
+                      m * (esize(dtype) + 1) + nb * 4, 6 * m, PEAK_OPS["float32"])
+        q, sc = int8_ops.int8_quantize(x)
+        rec_d = None
+        for od in out_dtypes:
+            rec = check("int8_dequantize", f"{desc} to {str(od).replace('torch.', '')}", od,
+                        lambda q, s: int8_ops.int8_dequantize(q, s, n=n, shape=tuple(shape),
+                                                              out_dtype=od),
+                        lambda q, s: int8_dequantize_ref(q, s, br, od).reshape(-1)[:n].reshape(shape),
+                        None, (q, sc), 0.0, m * (1 + esize(od)) + nb * 4, m, PEAK_OPS["float32"])
+            rec_d = rec_d or rec
+        return rec_q, rec_d
+
+    results["int8_quantize"], results["int8_dequantize"] = check_int8(
+        (cfg.padded_vocab, d), f32, (f32, bf))
+    check_int8((28, 128), f32, (f32, bf))
+    check_int8((28, 128), bf, (bf,))
+
     # ---- 3. serve at full width -------------------------------------------
     log(f"[3] {cfg.name}: {L} layers, d={d}, {H} heads / {KV} kv heads, head_dim {hd}, "
         f"d_ff {ff}, vocab {cfg.vocab} (padded {cfg.padded_vocab}), compute {cfg.dtype}")
@@ -556,7 +621,7 @@ def main() -> int:
         raise AssertionError(f"grid trainer completed {r.steps_completed} of {TRAIN_STEPS} steps")
     if not all(math.isfinite(x) for x in r.losses):
         raise AssertionError(f"non-finite loss: {r.losses}")
-    idle = [k for k, v in train_launches.items() if v == 0]
+    idle = [k for k, v in train_launches.items() if v == 0 and not k.startswith("int8")]
     if idle:
         raise AssertionError(f"kernels never launched on the training path: {idle}")
 
@@ -613,25 +678,159 @@ def main() -> int:
         f"{loss_err:.3e} (tol 1e-4); worst leaf err / max|g| {worst:.3e}")
     if loss_err > 1e-4:
         raise AssertionError(f"f32 loss card vs cpu: {loss_err}")
+    del p6, g_card, g_cpu
+    torch.cuda.empty_cache()
 
-    # ---- 7. result lines ---------------------------------------------------
+    # ---- 7. the plain training loop with checkpoint and restart -----------
+    loop_data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, n_shards=1,
+                           seed=SEED)
+    loop_opt = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=LOOP_STEPS)
+    n_params = cfg.param_count()
+    ckpt_bytes_want = 3 * 4 * n_params  # params, mu and nu in f32
+    scratch = Path(__file__).resolve().parent / "build"
+    free = shutil.disk_usage(scratch).free
+    log(f"[7] checkpoint of {ckpt_bytes_want / 1e9:.2f} GB to write under {scratch}; "
+        f"{free / 1e9:.2f} GB free")
+    if free < ckpt_bytes_want + 2**30:
+        raise AssertionError(f"not enough free disk for the phase-7 checkpoint: {free} bytes free, "
+                             f"{ckpt_bytes_want} needed and 1 GiB to spare")
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="chip_smoke_ckpt_") as ckpt_dir:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        r1 = train(cfg, loop_data, loop_opt, LOOP_STEPS, seed=SEED, checkpoint_dir=ckpt_dir,
+                   checkpoint_period=LOOP_PERIOD, log_every=1, log_fn=log)
+        torch.cuda.synchronize()
+        loop_launches = counts()
+        peak7 = torch.cuda.max_memory_allocated() / 2**30
+        step_dir = os.path.join(ckpt_dir, f"step_{LOOP_PERIOD:010d}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        # where a restore's time goes: the checksums and the npz reads alone
+        # (the files are in the page cache, as they are for the restore)
+        npz = [os.path.join(step_dir, f) for f in sorted(os.listdir(step_dir)) if f.endswith(".npz")]
+        t = time.perf_counter()
+        for f in npz:
+            checkpoint_sha256(f)
+        sha_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for f in npz:
+            with np.load(f) as z:
+                for k in z.files:
+                    z[k]
+        read_s = time.perf_counter() - t
+        r2 = train(cfg, loop_data, loop_opt, LOOP_STEPS, seed=SEED + 1, checkpoint_dir=ckpt_dir,
+                   checkpoint_period=LOOP_PERIOD, log_every=1, log_fn=log)
+        torch.cuda.synchronize()
+        saved = sorted(os.listdir(ckpt_dir))
+    log(f"[7] train {LOOP_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses {r1.losses}; "
+        f"step s {[round(x, 4) for x in r1.step_seconds]}; wall {r1.wall_time:.2f} s; "
+        f"peak_mem_gib {peak7:.2f}")
+    log(f"[7] checkpoint at step {LOOP_PERIOD}: {ckpt_bytes} bytes in {saved}; save s "
+        f"{[round(x, 3) for x in r1.save_seconds]} ({ckpt_bytes / r1.save_seconds[0] / 1e9:.3f} GB/s); "
+        f"restore s {r2.restore_seconds:.3f} ({ckpt_bytes / r2.restore_seconds / 1e9:.3f} GB/s)")
+    log(f"[7] of which, measured alone: sha256 of the files {sha_s:.3f} s, reading the npz arrays "
+        f"{read_s:.3f} s; the rest of the restore (host to device, templates) "
+        f"{r2.restore_seconds - sha_s - read_s:.3f} s, of the save (device to host, np.savez) "
+        f"{r1.save_seconds[0] - sha_s:.3f} s")
+    log(f"[7] launches {json.dumps(loop_launches)}")
+    if saved != [f"step_{LOOP_PERIOD:010d}"] or len(r1.save_seconds) != 1:
+        raise AssertionError(f"expected one checkpoint at step {LOOP_PERIOD}: {saved}, "
+                             f"{len(r1.save_seconds)} saves")
+    if not all(math.isfinite(x) for x in r1.losses) or len(r1.losses) != LOOP_STEPS:
+        raise AssertionError(f"training loop losses: {r1.losses}")
+    idle = [k for k in (*ops, *bwd_ops) if loop_launches[k] == 0]
+    if idle or any(loop_launches[k] for k in ("quorum_compare", "int8_quantize", "int8_dequantize")):
+        raise AssertionError(f"training-loop launches {loop_launches}: idle {idle}")
+    resumed = r2.losses[0] if r2.losses else float("nan")
+    bit_equal = resumed == r1.losses[LOOP_PERIOD]
+    log(f"[7] resumed from step {r2.restored_from}: step {LOOP_PERIOD + 1} loss {resumed!r}, the first "
+        f"run's {r1.losses[LOOP_PERIOD]!r} (rtol 1e-6); bit-equal: {bit_equal}")
+    if r2.restored_from != LOOP_PERIOD or len(r2.losses) != LOOP_STEPS - LOOP_PERIOD or \
+            not math.isclose(resumed, r1.losses[LOOP_PERIOD], rel_tol=1e-6):
+        raise AssertionError(f"resume: restored_from {r2.restored_from}, losses {r2.losses}, "
+                             f"want {r1.losses[LOOP_PERIOD]}")
+    del r1, r2
+    torch.cuda.empty_cache()
+
+    # ---- 8. the int8 wire format on the full-width gradient tree -----------
+    params = init_params(gen, model_spec(cfg), device=dev)
+    batch_np = make_batch(loop_data, 0, 0)
+    batch = {k: torch.from_numpy(v.astype(np.int64)).to(dev) for k, v in batch_np.items()}
+    grads, _ = make_grad_step(cfg)(params, batch)
+    del params, batch
+    leaves = tree_leaves(grads)
+    n_el = sum(g.numel() for g in leaves)
+    torch.cuda.synchronize()
+    zero_counts()
+    packed = compress_tree(grads)
+    out = decompress_tree(packed)
+    torch.cuda.synchronize()
+    comp_launches = counts()
+    log(f"[8] {len(leaves)} gradient leaves, {n_el} elements; launches {json.dumps(comp_launches)}")
+    if not comp_launches["int8_quantize"] or not comp_launches["int8_dequantize"]:
+        raise AssertionError(f"compression skipped an int8 kernel: {comp_launches}")
+    worst = 0.0
+    for g, item, o in zip(leaves, packed["payload"], tree_leaves(out)):
+        rows2d, br = int8_ops.to_rows(g)
+        want_q, want_s = int8_quantize_ref(rows2d, br)
+        want_o = int8_dequantize_ref(want_q, want_s, br, g.dtype).reshape(-1)[: g.numel()].reshape(g.shape)
+        if not (torch.equal(item["q"], want_q) and torch.equal(item["s"], want_s)
+                and torch.equal(o, want_o)):
+            raise AssertionError(f"payload of a {tuple(g.shape)} leaf differs from the plain versions'")
+        step = g.abs().max() / 127.0
+        worst = max(worst, ((g - o).abs().max() / step.clamp(min=1e-30)).item())
+        del want_q, want_s, want_o
+    wire, f32_bytes = compressed_bytes(packed), 4 * n_el
+    tree_bytes = sum(i["q"].numel() * 5 + i["s"].numel() * 4 for i in packed["payload"])
+    comp_ms = time_ms(lambda: compress_tree(grads), iters=5, warmup=1)
+    decomp_ms = time_ms(lambda: decompress_tree(packed), iters=5, warmup=1)
+    enqueue_ms = {}
+    for label, fn in (("compress", lambda: compress_tree(grads)),
+                      ("decompress", lambda: decompress_tree(packed))):
+        # host time to enqueue one call (nothing inside synchronises)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        enqueue_ms[label] = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+    comp_dev = device_ms(lambda: compress_tree(grads), iters=3)
+    decomp_dev = device_ms(lambda: decompress_tree(packed), iters=3)
+    log(f"[8] payload and decompressed tree equal the plain versions' bit for bit; worst "
+        f"|x - x^| / (leaf amax / 127) {worst:.6f} (limit 1 + 1e-6)")
+    log(f"[8] compressed_bytes {wire} against f32 {f32_bytes} ({f32_bytes / wire:.4f}x smaller)")
+    comp_q, decomp_q = (queued_event_ms(fn, iters=5) for fn in (lambda: compress_tree(grads),
+                                                                  lambda: decompress_tree(packed)))
+    log(f"[8] per tree: compress wall {comp_ms:.4f} ms (device {comp_dev:.4f}, queued behind a sleep "
+        f"{comp_q:.4f}, host enqueue {enqueue_ms['compress']:.4f}), decompress wall {decomp_ms:.4f} ms "
+        f"(device {decomp_dev:.4f}, queued {decomp_q:.4f}, host enqueue {enqueue_ms['decompress']:.4f}); "
+        f"bound each {tree_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+    if worst > 1 + 1e-6:
+        raise AssertionError(f"round-trip error {worst} quantization steps")
+    del grads, packed, out, leaves
+    torch.cuda.empty_cache()
+
+    # ---- result lines ------------------------------------------------------
     replaces = {
         "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:17",
         "swiglu": "src/repro/kernels/swiglu/kernel.py:12",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:30",
         "quorum_compare": "src/repro/kernels/quorum_compare/kernel.py:21",
+        "int8_quantize": "src/repro/kernels/int8_quant/kernel.py:19",
+        "int8_dequantize": "src/repro/kernels/int8_quant/kernel.py:28",
         # no TPU backward kernels: the reference differentiates its jnp
         # functions with XLA; each row names the forward TPU kernel
         "rmsnorm_bwd": "src/repro/kernels/rmsnorm/kernel.py:17",
         "swiglu_bwd": "src/repro/kernels/swiglu/kernel.py:12",
         "flash_attention_bwd": "src/repro/kernels/flash_attention/kernel.py:30",
     }
+    sources = {"int8_quantize": "int8_quant", "int8_dequantize": "int8_quant"}
+    main_launches = {**train_launches, "int8_quantize": comp_launches["int8_quantize"],
+                     "int8_dequantize": comp_launches["int8_dequantize"]}
     kernels = []
     for name, rec in results.items():
         row = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name.replace('_bwd', '')}.cu",
-            "replaces": replaces[name], "launches": train_launches[name],
+            "source": f"src/repro_torch/csrc/{sources.get(name, name.replace('_bwd', ''))}.cu",
+            "replaces": replaces[name], "launches": main_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "call_ms": rec["call_ms"], "shape": rec["shape"],
@@ -639,6 +838,8 @@ def main() -> int:
         }
         if name in launches:
             row["launches_serve"] = launches[name]
+        if name in ops or name in bwd_ops:
+            row["launches_train_loop"] = loop_launches[name]
         kernels.append(row)
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -3,7 +3,8 @@
 Each subpackage has ``ops.py`` (the public wrapper: the CUDA kernel for a
 CUDA tensor, the plain version for a CPU tensor, and a ``launches`` count,
 plus ``launches_bwd`` where there is a backward kernel behind a
-``torch.autograd.Function``) and ``ref.py`` (the plain PyTorch versions).
+``torch.autograd.Function``; int8_quant counts ``launches_quantize`` and
+``launches_dequantize``) and ``ref.py`` (the plain PyTorch versions).
 The CUDA sources live in ``repro_torch/csrc``; ``_build.py`` compiles them
 with nvcc for ``sm_90a`` and binds them with ctypes.
 
@@ -13,4 +14,6 @@ with nvcc for ``sm_90a`` and binds them with ctypes.
                      and backward (dQ; dK/dV)  (csrc/flash_attention.cu)
   quorum_compare   — fuzzy replica comparison: bad-element count and sum
                      of squares             (csrc/quorum_compare.cu)
+  int8_quant       — block-scaled int8 quantize and dequantize, the
+                     gradient wire format   (csrc/int8_quant.cu)
 """

@@ -1,8 +1,10 @@
 """Runtime of the port; counterpart of ``repro.runtime``: serving, the
-gradient and train steps, and the volunteer-grid trainer."""
+gradient and train steps, the single-process training loop with
+checkpoint/restart, and the volunteer-grid trainer."""
 from .grid_runtime import GridTrainer, GridTrainResult, grad_comparator
 from .serve_loop import AdmissionQueue, BatchServer, Request, ServeMetrics
 from .step_builder import make_decode_step, make_grad_step, make_prefill_step, make_train_step
+from .train_loop import TrainResult, train
 
 __all__ = [
     "AdmissionQueue",
@@ -11,9 +13,11 @@ __all__ = [
     "GridTrainer",
     "Request",
     "ServeMetrics",
+    "TrainResult",
     "grad_comparator",
     "make_decode_step",
     "make_grad_step",
     "make_prefill_step",
     "make_train_step",
+    "train",
 ]
