@@ -6,7 +6,7 @@
 Phases, in order; the first failure ends the run with a non-zero exit:
 
 1. Card and build: print the card's name and power limit, turn TF32 off,
-   build the five kernel libraries from ``src/repro_torch/csrc`` (one nvcc
+   build the six kernel libraries from ``src/repro_torch/csrc`` (one nvcc
    per source, all at once) into ``build/kernels/``.
 2. Each kernel, forward and backward, against its plain PyTorch version on
    the card, at the serving and training paths' shapes in bf16 and f32, with
@@ -24,6 +24,10 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    scales, and dequantized values at f32 and bf16) at the embedding
    gradient's shape and at a ragged (28, 128) leaf; no single PyTorch call
    computes the block-scaled int8 code, so they have no library time.
+   ssd_scan is held at the mamba2 and zamba2 prefill shapes in bf16 and
+   f32, with a ragged S and P tile, an initial state and two groups, and
+   against the sequential oracle at the reference test's size to 3e-4; no
+   single PyTorch call computes the SSD scan either.
 3. Serve qwen3-0.6b at full width (28 layers, random weights from a seeded
    generator, bf16 compute) through ``BatchServer``: 8 ragged requests of
    64-700 prompt tokens, 32 new tokens each, EDF deadlines. Every kernel
@@ -56,19 +60,35 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    versions' bit for bit, the worst error is at most one quantization step
    of its leaf, and the wire bytes are about a quarter of f32's. Per tree:
    wall, device and queued times, and the host time to enqueue a call.
+9. Serve mamba2-130m at full width (24 Mamba-2 layers, d=768, state 128)
+   with the traffic of phase 3; counters zeroed before and read after:
+   ssd_scan at least 24 per request, rmsnorm (2 x 24 + 1) per forward,
+   flash_attention and swiglu none. Then one prefill and one decode step
+   under ``torch.profiler``.
+10. mamba2-130m's f32 prefill logits on the card against the CPU (phase
+    4's check, all 24 layers).
+11. Serve zamba2-1.2b at full width (38 Mamba-2 layers in 6 groups of 6 and
+    a tail of 2, d=2048, one weight-tied attention+MLP block after each
+    group) with the same traffic: ssd_scan at least 38 per request,
+    flash_attention 6 per request, swiglu 6 and rmsnorm (2 x 38 + 2 x 6 + 1)
+    per forward; then the same profile.
+12. zamba2-1.2b's f32 prefill logits on the card against the CPU at 8
+    layers (one group and the tail).
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
 numbers of this run (``launches``: the counts of the grid training run
 (phase 5) for the forward, backward and quorum kernels and of the
-compression run (phase 8) for the int8 kernels; ``launches_serve`` and
-``launches_train_loop``, the serving run's and the training loop's, where
-the kernel runs there); the last line is
+compression run (phase 8) for the int8 kernels and of the mamba2 serving
+run (phase 9) for ssd_scan; ``launches_serve`` and ``launches_train_loop``,
+the serving run's and the training loop's, where the kernel runs there, and
+for ssd_scan ``launches_serve_zamba2``, phase 11's); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA card, or without the repository's ``src/`` beside it, the
 script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -218,9 +238,11 @@ def main() -> int:
     from repro_torch.kernels.quorum_compare.ref import quorum_compare_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_scan_ref
     from repro_torch.kernels.swiglu import ops as swiglu_ops
     from repro_torch.kernels.swiglu.ref import swiglu_bwd_ref, swiglu_ref
-    from repro_torch.models import init_cache, init_params, model_spec
+    from repro_torch.models import hybrid_layout, init_cache, init_params, model_spec, ssm_config
     from repro_torch.checkpoint.checkpointer import _checksum as checkpoint_sha256
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.optim import AdamWConfig, compress_tree, compressed_bytes, decompress_tree
@@ -232,9 +254,11 @@ def main() -> int:
     ops = {"rmsnorm": rms_ops, "swiglu": swiglu_ops, "flash_attention": flash_ops}
     bwd_ops = {"rmsnorm_bwd": rms_ops, "swiglu_bwd": swiglu_ops, "flash_attention_bwd": flash_ops}
 
+    fwd_ops = {**ops, "ssd_scan": ssd_ops}  # the serving paths' kernels
+
     def counts():
-        """Every launch counter: forward, backward, quorum_compare, int8."""
-        out = {name: mod.launches for name, mod in ops.items()}
+        """Every launch counter: forward, backward, quorum_compare, int8, ssd_scan."""
+        out = {name: mod.launches for name, mod in fwd_ops.items()}
         out.update({name: mod.launches_bwd for name, mod in bwd_ops.items()})
         out["quorum_compare"] = quorum_ops.launches
         out["int8_quantize"] = int8_ops.launches_quantize
@@ -244,7 +268,7 @@ def main() -> int:
     def zero_counts():
         for mod in (rms_ops, swiglu_ops, flash_ops):
             mod.launches = mod.launches_bwd = 0
-        quorum_ops.launches = 0
+        quorum_ops.launches = ssd_ops.launches = 0
         int8_ops.launches_quantize = int8_ops.launches_dequantize = 0
 
     # ---- 1. card and build -------------------------------------------------
@@ -259,8 +283,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     nvcc_s = _build.build()
-    if len(nvcc_s) != 5:
-        raise AssertionError(f"built {sorted(nvcc_s)}, expected five libraries")
+    if len(nvcc_s) != 6:
+        raise AssertionError(f"built {sorted(nvcc_s)}, expected six libraries")
     log(f"[1] built {', '.join(nvcc_s)} in {time.perf_counter() - t0:.2f} s wall "
         f"(nvcc s: {json.dumps({k: round(v, 2) for k, v in nvcc_s.items()})})")
 
@@ -505,85 +529,169 @@ def main() -> int:
     check_int8((28, 128), f32, (f32, bf))
     check_int8((28, 128), bf, (bf,))
 
+    # ssd_scan at the mamba2 and zamba2 prefill shapes (phases 9 and 11) in
+    # bf16 and f32, a ragged S and P tile, an initial state, two groups; A and
+    # dt drawn in Mamba-2's published ranges (A in U[1, 16], dt log-uniform in
+    # [0.001, 0.1]). Bound: bytes (x, B, C, dt, A, the initial state read
+    # once; y and the final state written once) or operations (the state
+    # update and the output, 2 x 2 x P x N per position and head, at the peak
+    # of the input type: bf16 products are exact in f32 and could run on the
+    # tensor cores); no single PyTorch call computes the SSD scan.
+    def uniform(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    def check_ssd(b, s, h, p, g, n, dtype, tol, init=False):
+        x = randn(b, s, h, p, dtype=dtype)
+        dt = torch.exp(uniform(b, s, h, lo=math.log(1e-3), hi=math.log(0.1)))
+        A = -uniform(h, lo=1.0, hi=16.0)
+        bm, cm = ((randn(b, s, g, n, dtype=f32) * 0.3).to(dtype) for _ in range(2))
+        st0 = randn(b, h, p, n, dtype=f32) * 0.5 if init else None
+        es = esize(dtype)
+        nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * es + 4 * (b * s * h + h) \
+            + 4 * b * h * p * n * (2 if init else 1)
+        return check("ssd_scan", f"({b}, {s}, {h}, {p}) g{g} n{n}{' +state' if init else ''}", dtype,
+                     lambda x, dt, A, bm, cm, st0: ssd_ops.ssd_scan(x, dt, A, bm, cm, initial_state=st0),
+                     lambda x, dt, A, bm, cm, st0: ssd_scan_ref(x, dt, A, bm, cm, block_q=256,
+                                                               initial_state=st0),
+                     None, (x, dt, A, bm, cm, st0), tol, nbytes, 4 * b * s * h * p * n,
+                     PEAK_OPS[str(dtype).replace("torch.", "")])
+
+    results["ssd_scan"] = check_ssd(1, s_max, 24, 64, 1, 128, bf, 2e-2)  # mamba2-130m
+    check_ssd(1, s_max, 24, 64, 1, 128, f32, 1e-4)
+    check_ssd(1, s_max, 64, 64, 1, 64, bf, 2e-2)  # zamba2-1.2b
+    check_ssd(1, s_max, 64, 64, 1, 64, f32, 1e-4)
+    check_ssd(1, s_max, 24, 64, 1, 128, f32, 1e-4, init=True)
+    check_ssd(1, 333, 24, 40, 1, 128, f32, 1e-4)  # S and P past the 32 x 16 tile
+    check_ssd(2, 200, 8, 32, 2, 32, f32, 1e-4)  # groups
+
+    def check_ssd_oracle(b, s, h, p, g, n):
+        """Against the sequential recurrence, with the reference test's
+        distributions and tolerance (3e-4, f32)."""
+        x = randn(b, s, h, p, dtype=f32)
+        dt = F.softplus(randn(b, s, h, dtype=f32)) * 0.05 + 0.001
+        A = -torch.exp(randn(h, dtype=f32) * 0.3)
+        bm, cm = (randn(b, s, g, n, dtype=f32) * 0.3 for _ in range(2))
+        got, want = ssd_ops.ssd_scan(x, dt, A, bm, cm), ssd_ref(x, dt, A, bm, cm)
+        for label, o, w in zip(("y", "final state"), got, want):
+            err = (o - w).abs().max().item()
+            log(f"[2] ssd_scan {label} against the sequential oracle ({b}, {s}, {h}, {p}) g{g} n{n} "
+                f"float32: max abs err {err:.3e} (tol 3e-4)")
+            if ((o - w).abs() > 3e-4 + 3e-4 * w.abs()).any():
+                raise AssertionError(f"ssd_scan {label} against ssd_ref: max abs err {err}")
+
+    check_ssd_oracle(1, 200, 8, 32, 2, 32)
+
     # ---- 3. serve at full width -------------------------------------------
+    def serve_full_width(tag, cfg, rng, implied):
+        """Serve N_REQUESTS requests of 64-700 prompt tokens (the first 700),
+        MAX_NEW new tokens each, EDF deadlines, through ``BatchServer`` at
+        full width from random weights (bf16 compute). Every counter is
+        zeroed just before the run and read just after: each forward kernel
+        must show at least ``implied(forwards)[name]`` launches (none where
+        that is 0), and no backward, quorum or int8 kernel may run. Then one
+        700-token prefill and one decode step under torch.profiler. Returns
+        the forward kernels' launches and the f32 parameters."""
+        # earlier phases leave device tensors in reference cycles (the grid
+        # trainer's store): free them, so that the peak memory is this run's
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        params = init_params(gen, model_spec(cfg), device=dev)  # f32
+        server = BatchServer(cfg, params, batch_slots=SLOTS, max_seq=MAX_SEQ)
+        torch.cuda.synchronize()
+        log(f"[{tag}] params {cfg.param_count()} ({time.perf_counter() - t:.2f} s to init and cast); "
+            f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        # warm-up (cuBLAS handles, allocator): one short request, not counted
+        server.submit(Request(id=-1, prompt=rng.integers(0, cfg.vocab, size=16).astype(np.int32),
+                              max_new_tokens=2))
+        server.run()
+        server.metrics = ServeMetrics()
+        prompt_lens = [int(n) for n in rng.integers(64, 701, size=N_REQUESTS)]
+        prompt_lens[0] = s_max
+        reqs = [Request(id=i, prompt=rng.integers(0, cfg.vocab, size=n).astype(np.int32),
+                        max_new_tokens=MAX_NEW, deadline=float(rng.integers(1, 100)))
+                for i, n in enumerate(prompt_lens)]
+        for r in reqs:
+            server.submit(r)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        m = server.run()
+        torch.cuda.synchronize()
+        run_counts = counts()
+        launches = {name: run_counts[name] for name in fwd_ops}
+        stray = {k: v for k, v in run_counts.items() if k not in fwd_ops and v}
+        if stray:
+            raise AssertionError(f"serving launched a backward, quorum or int8 kernel: {stray}")
+        log(f"[{tag}] prompt lengths {prompt_lens}; launches {json.dumps(launches)}")
+        assert m.requests_done == N_REQUESTS, m
+        assert m.tokens_generated == N_REQUESTS * (MAX_NEW - 1), m
+        for r in reqs:
+            assert len(r.tokens_out) == MAX_NEW and all(0 <= t < cfg.vocab for t in r.tokens_out), r.id
+        forwards = N_REQUESTS + m.decode_steps
+        for name, want in implied(forwards).items():
+            if launches[name] < want or (want == 0 and launches[name]):
+                raise AssertionError(f"{name}: {launches[name]} launches on the serving path, "
+                                     f"the path implies {'none' if want == 0 else f'at least {want}'}")
+        log(f"[{tag}] requests_done {m.requests_done} tokens_generated {m.tokens_generated} "
+            f"decode_steps {m.decode_steps} wall_s {m.wall_time:.3f}")
+        log(f"[{tag}] prefill_ms_per_request {m.prefill_time / N_REQUESTS * 1e3:.3f} "
+            f"decode_ms_per_step {m.decode_time / m.decode_steps * 1e3:.3f} "
+            f"tokens_per_s {m.tokens_per_s:.2f} "
+            f"mean_prompt {sum(prompt_lens) / N_REQUESTS:.1f} "
+            f"peak_mem_gib {torch.cuda.max_memory_allocated() / 2**30:.2f}")
+
+        # where the device time goes: one 700-token prefill and one decode step
+        prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+        one = init_cache(cfg, 1, MAX_SEQ)
+        toks = torch.as_tensor(reqs[0].prompt, dtype=torch.long, device=dev)[None, :]
+        batch_cache = init_cache(cfg, SLOTS, MAX_SEQ)
+        dec_toks = torch.zeros((SLOTS, 1), dtype=torch.long, device=dev)
+        for label, step in (("prefill 700", lambda: prefill(server.params, {"tokens": toks}, one)),
+                            ("decode x4", lambda: decode(server.params, dec_toks, batch_cache, s_max))):
+            step()
+            torch.cuda.synchronize()
+            profile_breakdown(step, f"[{tag}] {label}", top=8)
+        del server, one, batch_cache
+        torch.cuda.empty_cache()
+        return launches, params
+
+    def logits_card_vs_cpu(tag, cfg32, params, prompt, tol, kernels):
+        """The card's f32 prefill logits of ``prompt`` (through the kernels,
+        each of ``kernels`` launched) against the port's CPU forward (plain
+        versions) from the same parameters: max abs error within ``tol`` and
+        the same argmax."""
+        step32 = make_prefill_step(cfg32)
+        before = counts()
+        n = len(prompt)
+        gpu_logits, _ = step32(params, {"tokens": prompt[None].to(dev)}, init_cache(cfg32, 1, n))
+        torch.cuda.synchronize()
+        after = counts()
+        skipped = [k for k in kernels if after[k] <= before[k]]
+        if skipped:
+            raise AssertionError(f"the f32 prefill skipped {skipped}")
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        cpu_logits, _ = step32(cpu_params, {"tokens": prompt[None]}, init_cache(cfg32, 1, n, "cpu"))
+        g, c = gpu_logits[0, -1, : cfg32.vocab].cpu(), cpu_logits[0, -1, : cfg32.vocab]
+        assert torch.isfinite(g).all() and g.shape == (cfg32.vocab,)
+        err = (g - c).abs().max().item()
+        log(f"[{tag}] {cfg32.name} ({cfg32.n_layers} layers) f32 prefill logits, card vs CPU: max abs "
+            f"err {err:.3e} (tol {tol}, |logit| max {c.abs().max().item():.3f}); argmax card "
+            f"{int(g.argmax())} cpu {int(c.argmax())}")
+        if err > tol or int(g.argmax()) != int(c.argmax()):
+            raise AssertionError(f"{cfg32.name}: f32 logits card vs CPU differ by {err}")
+
     log(f"[3] {cfg.name}: {L} layers, d={d}, {H} heads / {KV} kv heads, head_dim {hd}, "
         f"d_ff {ff}, vocab {cfg.vocab} (padded {cfg.padded_vocab}), compute {cfg.dtype}")
-    t = time.perf_counter()
-    params = init_params(gen, model_spec(cfg), device=dev)  # f32
-    server = BatchServer(cfg, params, batch_slots=SLOTS, max_seq=MAX_SEQ)
-    torch.cuda.synchronize()
-    log(f"[3] params {cfg.param_count()} ({time.perf_counter() - t:.2f} s to init and cast); "
-        f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     rng = np.random.default_rng(SEED)
-    # warm-up (cuBLAS handles, allocator): one short request, not counted
-    server.submit(Request(id=-1, prompt=rng.integers(0, cfg.vocab, size=16).astype(np.int32),
-                          max_new_tokens=2))
-    server.run()
-    server.metrics = ServeMetrics()
-    prompt_lens = [int(n) for n in rng.integers(64, 701, size=N_REQUESTS)]
-    prompt_lens[0] = s_max
-    reqs = [Request(id=i, prompt=rng.integers(0, cfg.vocab, size=n).astype(np.int32),
-                    max_new_tokens=MAX_NEW, deadline=float(rng.integers(1, 100)))
-            for i, n in enumerate(prompt_lens)]
-    for r in reqs:
-        server.submit(r)
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    m = server.run()
-    torch.cuda.synchronize()
-    launches = {name: mod.launches for name, mod in ops.items()}
-    if any(v for k, v in counts().items() if k not in ops):
-        raise AssertionError(f"serving launched a backward or quorum kernel: {counts()}")
-    log(f"[3] prompt lengths {prompt_lens}; launches {json.dumps(launches)}")
-    assert m.requests_done == N_REQUESTS, m
-    assert m.tokens_generated == N_REQUESTS * (MAX_NEW - 1), m
-    for r in reqs:
-        assert len(r.tokens_out) == MAX_NEW and all(0 <= t < cfg.vocab for t in r.tokens_out), r.id
-    forwards = N_REQUESTS + m.decode_steps
-    implied = {"rmsnorm": (4 * L + 1) * forwards, "swiglu": L * forwards,
-               "flash_attention": L * N_REQUESTS}
-    for name, want in implied.items():
-        if launches[name] < want:
-            raise AssertionError(f"{name}: {launches[name]} launches on the serving path, "
-                                 f"the path implies at least {want}")
-    log(f"[3] requests_done {m.requests_done} tokens_generated {m.tokens_generated} "
-        f"decode_steps {m.decode_steps} wall_s {m.wall_time:.3f}")
-    log(f"[3] prefill_ms_per_request {m.prefill_time / N_REQUESTS * 1e3:.3f} "
-        f"decode_ms_per_step {m.decode_time / m.decode_steps * 1e3:.3f} "
-        f"tokens_per_s {m.tokens_per_s:.2f} "
-        f"mean_prompt {sum(prompt_lens) / N_REQUESTS:.1f} "
-        f"peak_mem_gib {torch.cuda.max_memory_allocated() / 2**30:.2f}")
-
-    # where the device time goes: one 700-token prefill and one decode step
-    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    one = init_cache(cfg, 1, MAX_SEQ)
-    toks = torch.as_tensor(reqs[0].prompt, dtype=torch.long, device=dev)[None, :]
-    batch_cache = init_cache(cfg, SLOTS, MAX_SEQ)
-    dec_toks = torch.zeros((SLOTS, 1), dtype=torch.long, device=dev)
-    for label, step in (("prefill 700", lambda: prefill(server.params, {"tokens": toks}, one)),
-                        ("decode x4", lambda: decode(server.params, dec_toks, batch_cache, s_max))):
-        step()
-        torch.cuda.synchronize()
-        profile_breakdown(step, f"[3] {label}", top=8)
+    launches, params = serve_full_width(
+        "3", cfg, rng, lambda f: {"rmsnorm": (4 * L + 1) * f, "swiglu": L * f,
+                                  "flash_attention": L * N_REQUESTS, "ssd_scan": 0})
 
     # ---- 4. card (kernels) against CPU (plain versions), f32 ---------------
-    cfg32 = cfg.scaled(dtype=torch.float32)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=64), dtype=torch.long)
-    step32 = make_prefill_step(cfg32)
-    before = {name: mod.launches for name, mod in ops.items()}
-    gpu_logits, _ = step32(params, {"tokens": prompt[None].to(dev)}, init_cache(cfg32, 1, 64))
-    torch.cuda.synchronize()
-    assert all(ops[n].launches > before[n] for n in ops), "f32 prefill skipped a kernel"
-    cpu_params = tree_map(lambda t: t.cpu(), params)
-    cpu_logits, _ = step32(cpu_params, {"tokens": prompt[None]}, init_cache(cfg32, 1, 64, "cpu"))
-    g, c = gpu_logits[0, -1, : cfg.vocab].cpu(), cpu_logits[0, -1, : cfg.vocab]
-    assert torch.isfinite(g).all() and g.shape == (cfg.vocab,)
-    err4 = (g - c).abs().max().item()
-    tol4 = 1e-3  # 28 f32 layers, summed in other orders on the card and the CPU
-    log(f"[4] f32 prefill logits, card vs CPU: max abs err {err4:.3e} (tol {tol4}, |logit| max "
-        f"{c.abs().max().item():.3f}); argmax card {int(g.argmax())} cpu {int(c.argmax())}")
-    assert err4 <= tol4 and int(g.argmax()) == int(c.argmax())
-    del server, params, cpu_params, one, batch_cache
+    # 28 f32 layers, summed in other orders on the card and the CPU
+    logits_card_vs_cpu("4", cfg.scaled(dtype=torch.float32), params, prompt, 1e-3, list(ops))
+    del params
     torch.cuda.empty_cache()
 
     # ---- 5. train through the volunteer grid at full width -----------------
@@ -621,7 +729,7 @@ def main() -> int:
         raise AssertionError(f"grid trainer completed {r.steps_completed} of {TRAIN_STEPS} steps")
     if not all(math.isfinite(x) for x in r.losses):
         raise AssertionError(f"non-finite loss: {r.losses}")
-    idle = [k for k, v in train_launches.items() if v == 0 and not k.startswith("int8")]
+    idle = [k for k in (*ops, *bwd_ops, "quorum_compare") if train_launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the training path: {idle}")
 
@@ -664,11 +772,11 @@ def main() -> int:
     # per leaf: |card - cpu| <= 1e-3 |cpu| + 1e-4 max|cpu| (f32 sums over 256
     # tokens and up to 152064 vocabulary rows, in other orders on the two)
     worst = 0.0
-    for path_leaf, (gc, gp) in enumerate(zip(tree_leaves(g_card), tree_leaves(g_cpu))):
-        gc = gc.cpu()
-        err = (gc - gp).abs()
+    for path_leaf, (g_leaf, gp) in enumerate(zip(tree_leaves(g_card), tree_leaves(g_cpu))):
+        g_leaf = g_leaf.cpu()
+        err = (g_leaf - gp).abs()
         lim = 1e-3 * gp.abs() + 1e-4 * gp.abs().max()
-        if not torch.isfinite(gc).all() or (err > lim).any():
+        if not torch.isfinite(g_leaf).all() or (err > lim).any():
             raise AssertionError(f"grad leaf {path_leaf} {tuple(gp.shape)}: max abs err "
                                  f"{err.max().item():.3e} past 1e-3|x| + 1e-4 max|x|")
         worst = max(worst, (err.max() / gp.abs().max().clamp(min=1e-30)).item())
@@ -808,6 +916,46 @@ def main() -> int:
     del grads, packed, out, leaves
     torch.cuda.empty_cache()
 
+    # ---- 9-10. serve mamba2-130m at full width; f32 logits card vs CPU ----
+    mcfg = get_config("mamba2-130m")
+    msc = ssm_config(mcfg)
+    Lm = mcfg.n_layers
+    log(f"[9] {mcfg.name}: {Lm} mamba2 layers, d={mcfg.d_model}, d_inner {msc.d_inner}, "
+        f"{msc.n_heads} heads of {msc.head_dim}, state {msc.d_state}, {msc.n_groups} group, "
+        f"vocab {mcfg.vocab} (padded {mcfg.padded_vocab}), compute {mcfg.dtype}")
+    rng = np.random.default_rng(SEED + 9)
+    mamba_launches, params = serve_full_width(
+        "9", mcfg, rng, lambda f: {"ssd_scan": Lm * N_REQUESTS, "rmsnorm": (2 * Lm + 1) * f,
+                                   "flash_attention": 0, "swiglu": 0})
+    prompt = torch.as_tensor(rng.integers(0, mcfg.vocab, size=64), dtype=torch.long)
+    logits_card_vs_cpu("10", mcfg.scaled(dtype=torch.float32), params, prompt, 1e-3,
+                       ["rmsnorm", "ssd_scan"])
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- 11-12. serve zamba2-1.2b at full width; f32 logits card vs CPU ----
+    zcfg = get_config("zamba2-1.2b")
+    zsc = ssm_config(zcfg)
+    Lz = zcfg.n_layers
+    ng, per, tail = hybrid_layout(zcfg)
+    log(f"[11] {zcfg.name}: {Lz} mamba2 layers in {ng} groups of {per} and a tail of {tail}, "
+        f"d={zcfg.d_model}, d_inner {zsc.d_inner}, {zsc.n_heads} heads of {zsc.head_dim}, state "
+        f"{zsc.d_state}; one shared block after each group: {zcfg.n_heads}/{zcfg.n_kv_heads} heads, "
+        f"head_dim {zcfg.resolved_head_dim}, d_ff {zcfg.d_ff}; vocab {zcfg.vocab}, compute {zcfg.dtype}")
+    rng = np.random.default_rng(SEED + 11)
+    zamba_launches, params = serve_full_width(
+        "11", zcfg, rng, lambda f: {"ssd_scan": Lz * N_REQUESTS, "flash_attention": ng * N_REQUESTS,
+                                    "swiglu": ng * f, "rmsnorm": (2 * Lz + 2 * ng + 1) * f})
+    del params
+    torch.cuda.empty_cache()
+    # one group and the tail (8 layers) against the CPU
+    z8 = zcfg.scaled(n_layers=per + tail, dtype=torch.float32)
+    params = init_params(gen, model_spec(z8), device=dev)
+    prompt = torch.as_tensor(rng.integers(0, zcfg.vocab, size=64), dtype=torch.long)
+    logits_card_vs_cpu("12", z8, params, prompt, 1e-3, list(fwd_ops))
+    del params
+    torch.cuda.empty_cache()
+
     # ---- result lines ------------------------------------------------------
     replaces = {
         "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:17",
@@ -816,6 +964,7 @@ def main() -> int:
         "quorum_compare": "src/repro/kernels/quorum_compare/kernel.py:21",
         "int8_quantize": "src/repro/kernels/int8_quant/kernel.py:19",
         "int8_dequantize": "src/repro/kernels/int8_quant/kernel.py:28",
+        "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:26",
         # no TPU backward kernels: the reference differentiates its jnp
         # functions with XLA; each row names the forward TPU kernel
         "rmsnorm_bwd": "src/repro/kernels/rmsnorm/kernel.py:17",
@@ -824,7 +973,8 @@ def main() -> int:
     }
     sources = {"int8_quantize": "int8_quant", "int8_dequantize": "int8_quant"}
     main_launches = {**train_launches, "int8_quantize": comp_launches["int8_quantize"],
-                     "int8_dequantize": comp_launches["int8_dequantize"]}
+                     "int8_dequantize": comp_launches["int8_dequantize"],
+                     "ssd_scan": mamba_launches["ssd_scan"]}
     kernels = []
     for name, rec in results.items():
         row = {
@@ -836,10 +986,13 @@ def main() -> int:
             "library_ms": rec["library_ms"], "call_ms": rec["call_ms"], "shape": rec["shape"],
             "dtype": rec["dtype"],
         }
-        if name in launches:
+        if name in ops:
             row["launches_serve"] = launches[name]
         if name in ops or name in bwd_ops:
             row["launches_train_loop"] = loop_launches[name]
+        if name == "ssd_scan":
+            row["launches_serve"] = mamba_launches[name]
+            row["launches_serve_zamba2"] = zamba_launches[name]
         kernels.append(row)
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Architecture registry; counterpart of ``repro.configs``.
 
-The reference registers ten architectures. Only ``qwen3-0.6b`` is ported;
-asking for any other raises ``NotImplementedError``.
+The reference registers ten architectures. ``qwen3-0.6b`` (dense),
+``mamba2-130m`` (ssm) and ``zamba2-1.2b`` (hybrid) are ported; asking for
+any other raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ ARCHS: List[str] = [
     "zamba2-1.2b",
 ]
 
-PORTED: List[str] = ["qwen3-0.6b"]
+PORTED: List[str] = ["mamba2-130m", "qwen3-0.6b", "zamba2-1.2b"]
 
 _MODULES: Dict[str, str] = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -1,0 +1,94 @@
+"""The Mamba-2 SSD scan on the model layout: the CUDA kernel
+(``csrc/ssd_scan.cu``) for CUDA tensors, the plain chunked version
+(``ref.ssd_scan_ref``) for CPU tensors.
+
+The kernel reads x ``(B, S, H, P)`` and B, C ``(B, S, G, N)`` through their
+strides, so neither the reference wrapper's move of the sequence axis nor
+its padding to a multiple of ``block_q`` is needed; it picks its own chunk
+of 32 positions, and ``block_q`` sets the chunk of the plain version only
+(the result does not depend on the chunk beyond rounding). Beyond the
+reference's signature there is one keyword, ``initial_state``: the state
+the scan starts from (zeros when None), which the model's prefill passes
+from its cache, as the reference's ``ssd_chunked`` takes one.
+
+There is no backward kernel yet (the SSM training slice): asking for a
+gradient through a CUDA tensor raises. ``launches`` counts the kernel's
+launches; the CPU path leaves it alone.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from .. import _build
+from .ref import ssd_scan_ref
+
+MAX_N = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = (
+    [ctypes.c_void_p] * 8  # x, dt, A, B, C, initial state (null: zeros), y, final state
+    + [ctypes.c_int] * 6  # B, S, H, G, P, N
+    + [ctypes.c_int64] * 15  # (batch, seq, head) strides of x, dt, B, C, y
+    + [ctypes.c_int, ctypes.c_void_p]  # dtype, stream
+)
+
+launches = 0
+
+
+def _check(x, dt, A, Bm, Cm, initial_state) -> Tuple[int, int, int, int, int, int]:
+    ts = (x, dt, A, Bm, Cm) + ((initial_state,) if initial_state is not None else ())
+    if x.device.type != "cuda" or any(t.device != x.device for t in ts):
+        raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not {[str(t.device) for t in ts]}")
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"ssd_scan kernel takes x, B and C in float32 or bfloat16 alike, not "
+                        f"{x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    if (dt.shape != (b, s, h) or A.shape != (h,) or Bm.shape != (b, s, g, n)
+            or Cm.shape != Bm.shape or g == 0 or h % g):
+        raise ValueError(f"ssd_scan shapes: x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)}, B {tuple(Bm.shape)}, C {tuple(Cm.shape)}")
+    if not 0 < n <= MAX_N:
+        raise ValueError(f"ssd_scan kernel needs 0 < N <= {MAX_N}, got {n}")
+    if initial_state is not None and initial_state.shape != (b, h, p, n):
+        raise ValueError(f"ssd_scan initial_state must be {(b, h, p, n)}, "
+                         f"not {tuple(initial_state.shape)}")
+    return b, s, h, g, p, n
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H), post-softplus
+    A: torch.Tensor,  # (H,), negative
+    Bm: torch.Tensor,  # (B, S, G, N)
+    Cm: torch.Tensor,  # (B, S, G, N)
+    *,
+    block_q: int = 128,
+    initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(y (B, S, H, P) in x's dtype, final_state (B, H, P, N) f32)``. dt,
+    A and the state are taken in f32."""
+    global launches
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, A, Bm, Cm, block_q=block_q, initial_state=initial_state)
+    b, s, h, g, p, n = _check(x, dt, A, Bm, Cm, initial_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, initial_state)):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet: training an SSM on the card waits for the SSM "
+            "training slice (an ssd_scan backward kernel)")
+    x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, Bm, Cm))
+    dt, A = dt.float(), A.float().contiguous()
+    init = None if initial_state is None else initial_state.float().contiguous()
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    fn = _build.entry("ssd_scan", "repro_ssd_scan", _ARGTYPES)
+    strides = [st for t in (x, dt, Bm, Cm, y) for st in t.stride()[:3]]
+    code = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+              init.data_ptr() if init is not None else None, y.data_ptr(), state.data_ptr(),
+              b, s, h, g, p, n, *strides, _DTYPES[x.dtype], _build.stream_ptr(x.device))
+    _build.check("ssd_scan", code)
+    launches += 1
+    return y, state

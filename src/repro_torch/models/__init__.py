@@ -1,18 +1,31 @@
-"""Model code of the port; counterpart of ``repro.models`` (dense family)."""
+"""Model code of the port; counterpart of ``repro.models`` (dense GQA, ssm
+and hybrid families)."""
 from .config import ModelConfig
 from .convert import params_from_jax
 from .layers import ParamSpec, count_params, init_params
-from .transformer import cache_spec, forward, init_cache, model_spec, train_loss
+from .ssm import SSMConfig
+from .transformer import (
+    cache_spec,
+    forward,
+    hybrid_layout,
+    init_cache,
+    model_spec,
+    ssm_config,
+    train_loss,
+)
 
 __all__ = [
     "ModelConfig",
     "ParamSpec",
+    "SSMConfig",
     "cache_spec",
     "count_params",
     "forward",
+    "hybrid_layout",
     "init_cache",
     "init_params",
     "model_spec",
     "params_from_jax",
+    "ssm_config",
     "train_loss",
 ]

@@ -41,8 +41,8 @@ def gqa_spec(
         "wo": ParamSpec((n_heads, head_dim, d_model), ("heads", "head_dim", "embed")),
     }
     if qk_norm:
-        spec["q_norm"] = ParamSpec((head_dim,), ("head_dim",), init="ones")
-        spec["k_norm"] = ParamSpec((head_dim,), ("head_dim",), init="ones")
+        spec["q_norm"] = ParamSpec((head_dim,), ("head_dim",), init="ones", f32_at_use=True)
+        spec["k_norm"] = ParamSpec((head_dim,), ("head_dim",), init="ones", f32_at_use=True)
     return spec
 
 

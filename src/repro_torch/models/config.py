@@ -1,8 +1,8 @@
 """Model configuration; counterpart of ``repro.models.config``.
 
 The fields are the reference's, with torch dtypes in place of the jnp ones.
-Only the dense family is ported so far; ``param_count`` raises for the
-others through ``model_spec``.
+The dense (GQA), ssm and hybrid families are ported; ``param_count`` raises
+for the others through ``model_spec``.
 """
 from __future__ import annotations
 

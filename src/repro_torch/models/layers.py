@@ -30,6 +30,9 @@ class ParamSpec:
     init: str = "normal"  # normal | zeros | ones | embed
     scale: float = 1.0
     dtype: Any = torch.float32
+    # read at f32 at every use whatever the compute dtype (RMSNorm scales,
+    # Mamba's A_log and dt_bias): the server keeps such leaves in f32
+    f32_at_use: bool = False
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -108,6 +111,7 @@ def stack_layer_specs(spec_tree: Any, n_layers: int, axis_name: str = "layers") 
             init=s.init,
             scale=s.scale,
             dtype=s.dtype,
+            f32_at_use=s.f32_at_use,
         ),
         spec_tree,
     )
@@ -119,7 +123,7 @@ def stack_layer_specs(spec_tree: Any, n_layers: int, axis_name: str = "layers") 
 
 
 def rmsnorm_spec(dim: int) -> Dict[str, ParamSpec]:
-    return {"scale": ParamSpec((dim,), ("embed",), init="ones")}
+    return {"scale": ParamSpec((dim,), ("embed",), init="ones", f32_at_use=True)}
 
 
 def rms_norm(params: Dict[str, torch.Tensor], x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

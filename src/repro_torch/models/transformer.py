@@ -1,13 +1,24 @@
-"""Dense decoder stack; counterpart of ``repro.models.transformer``.
+"""Decoder stacks; counterpart of ``repro.models.transformer``.
 
-[rmsnorm -> GQA attention (qk-norm, RoPE) -> +res -> rmsnorm -> SwiGLU MLP
--> +res] x L, then the final rmsnorm and the tied unembedding. The
+Families ported:
+
+  dense (GQA) : [rmsnorm -> attention (qk-norm, RoPE) -> +res -> rmsnorm ->
+                SwiGLU MLP -> +res] x L
+  ssm         : [rmsnorm -> mamba2 -> +res] x L
+  hybrid      : groups of mamba layers with ONE weight-tied attention+MLP
+                block (no qk-norm) after each group, then the tail layers
+
+each followed by the final rmsnorm and the tied unembedding. The
 reference's ``lax.scan`` over stacked layer parameters is a Python loop over
-their leading axis, unbound once (so a gradient through the layers is one
-stack of the per-layer gradients). ``jax.checkpoint`` becomes
+their leading axis (or the two leading axes, groups and layers, of the
+hybrid stack), unbound once (so a gradient through the layers is one stack
+of the per-layer gradients). ``jax.checkpoint`` becomes
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, for each
-layer when training with ``cfg.remat`` and for each CE chunk of
-``train_loss``. Only the dense family is ported.
+layer (each group of the hybrid stack) when training with ``cfg.remat`` and
+for each CE chunk of ``train_loss``. A given cache is written in place:
+K/V slices as in the reference's ``dynamic_update_slice``, and each mamba
+layer's state and conv tail replaced by the new ones. MoE, MLA and the
+vlm/audio families are not ported yet.
 """
 from __future__ import annotations
 
@@ -32,13 +43,14 @@ from .layers import (
     tree_map,
     unembed_logits,
 )
+from .ssm import SSMConfig, mamba2_decode_step, mamba2_forward, mamba2_spec, mamba2_state_shape
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.attention != "gqa":
+def _require_ported(cfg: ModelConfig) -> None:
+    if not (cfg.family in ("ssm", "hybrid") or (cfg.family == "dense" and cfg.attention == "gqa")):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / attention {cfg.attention!r} is not yet "
-            "ported to repro_torch (dense GQA only)"
+            "ported to repro_torch (dense GQA, ssm and hybrid only)"
         )
 
 
@@ -52,6 +64,27 @@ def attn_config(cfg: ModelConfig) -> AttnConfig:
         causal=cfg.causal,
         norm_eps=cfg.norm_eps,
     )
+
+
+def ssm_config(cfg: ModelConfig) -> SSMConfig:
+    return SSMConfig(
+        d_model=cfg.d_model,
+        d_state=cfg.ssm_state,
+        d_conv=cfg.ssm_conv,
+        expand=cfg.ssm_expand,
+        head_dim=cfg.ssm_head_dim,
+        n_groups=cfg.ssm_groups,
+        chunk=cfg.ssm_chunk,
+        norm_eps=cfg.norm_eps,
+    )
+
+
+def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_groups, layers_per_group, tail_layers) for hybrid stacks."""
+    period = cfg.shared_attn_period
+    n_groups = cfg.n_layers // period
+    tail = cfg.n_layers - n_groups * period
+    return n_groups, period, tail
 
 
 def _dense_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -69,12 +102,35 @@ def _dense_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def _mamba_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"norm": rmsnorm_spec(cfg.d_model), "mamba": mamba2_spec(ssm_config(cfg))}
+
+
 def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    _require_dense(cfg)
+    _require_ported(cfg)
     spec: Dict[str, Any] = {}
     if cfg.vocab:
         spec["embed"] = embedding_spec(cfg.padded_vocab, cfg.d_model)
-    spec["layers"] = stack_layer_specs(_dense_block_spec(cfg), cfg.n_layers)
+    if cfg.family == "dense":
+        spec["layers"] = stack_layer_specs(_dense_block_spec(cfg), cfg.n_layers)
+    elif cfg.family == "ssm":
+        spec["layers"] = stack_layer_specs(_mamba_block_spec(cfg), cfg.n_layers)
+    else:  # hybrid
+        ng, per, tail = hybrid_layout(cfg)
+        spec["groups"] = stack_layer_specs(
+            stack_layer_specs(_mamba_block_spec(cfg), per), ng, axis_name="groups"
+        )
+        if tail:
+            spec["tail"] = stack_layer_specs(_mamba_block_spec(cfg), tail)
+        # the weight-tied shared transformer block (Zamba2)
+        spec["shared_attn"] = {
+            "attn_norm": rmsnorm_spec(cfg.d_model),
+            "attn": gqa_spec(
+                cfg.d_model, cfg.n_heads, cfg.n_kv_heads or cfg.n_heads, cfg.resolved_head_dim
+            ),
+            "mlp_norm": rmsnorm_spec(cfg.d_model),
+            "mlp": mlp_spec(cfg.d_model, cfg.d_ff),
+        }
     spec["final_norm"] = rmsnorm_spec(cfg.d_model)
     return spec
 
@@ -94,6 +150,85 @@ def _dense_block(
     return x + mlp_forward(lp["mlp"], h)
 
 
+def _mamba_block(
+    lp: Dict[str, Any],
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    state: Optional[Dict[str, torch.Tensor]],
+    decode: bool,
+) -> torch.Tensor:
+    """One [rmsnorm -> mamba2 -> +res] layer; a given state (views into the
+    stacked cache) is replaced in place by the new one."""
+    h = rms_norm(lp["norm"], x, cfg.norm_eps)
+    if decode:
+        m, new_state = mamba2_decode_step(lp["mamba"], h, ssm_config(cfg), state)
+    else:
+        m, new_state = mamba2_forward(lp["mamba"], h, ssm_config(cfg), state)
+    if state is not None:
+        for key in ("ssm", "conv"):
+            state[key].copy_(new_state[key])
+    return x + m
+
+
+def _scan_mamba(
+    layers: Dict[str, Any],
+    n_layers: int,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    state: Optional[Dict[str, torch.Tensor]],
+    decode: bool,
+    train: bool,
+) -> torch.Tensor:
+    unbound = tree_map(lambda t: t.unbind(0), layers)
+    remat = train and cfg.remat
+    for i in range(n_layers):
+        lp = tree_map(lambda t: t[i], unbound)
+        lstate = tree_map(lambda t: t[i], state) if state is not None else None
+        if remat:
+            x = checkpoint(_mamba_block, lp, x, cfg, lstate, decode, use_reentrant=False)
+        else:
+            x = _mamba_block(lp, x, cfg, lstate, decode)
+    return x
+
+
+def _hybrid_forward(
+    params: Dict[str, Any],
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    cache: Optional[Dict[str, Any]],
+    cache_index: Optional[int],
+    decode: bool,
+    train: bool,
+) -> torch.Tensor:
+    shared = params["shared_attn"]
+    acfg = attn_config(cfg)
+    ng, per, tail = hybrid_layout(cfg)
+
+    def group_body(gp, h, gstate, gattn):
+        h = _scan_mamba(gp, per, h, cfg, gstate, decode, train=False)
+        # the weight-tied shared block; its K/V cache slice is written in place
+        a_in = rms_norm(shared["attn_norm"], h, cfg.norm_eps)
+        a, _ = gqa_forward(shared["attn"], a_in, acfg, positions, gattn, cache_index)
+        h = h + a
+        m_in = rms_norm(shared["mlp_norm"], h, cfg.norm_eps)
+        return h + mlp_forward(shared["mlp"], m_in)
+
+    groups = tree_map(lambda t: t.unbind(0), params["groups"])
+    for gi in range(ng):
+        gp = tree_map(lambda t: t[gi], groups)
+        gstate = tree_map(lambda t: t[gi], cache["groups_mamba"]) if cache is not None else None
+        gattn = tree_map(lambda t: t[gi], cache["groups_attn"]) if cache is not None else None
+        if train and cfg.remat:
+            x = checkpoint(group_body, gp, x, gstate, gattn, use_reentrant=False)
+        else:
+            x = group_body(gp, x, gstate, gattn)
+    if tail:
+        tstate = cache["tail"] if cache is not None else None
+        x = _scan_mamba(params["tail"], tail, x, cfg, tstate, decode, train)
+    return x
+
+
 def forward(
     params: Dict[str, Any],
     cfg: ModelConfig,
@@ -105,27 +240,36 @@ def forward(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns (logits (B, S, V_padded) or hidden, cache).
 
-    A given cache is written in place, layer by layer, and returned. With
-    ``train`` and ``cfg.remat`` each layer runs under activation
-    checkpointing, as the reference's ``_scan_dense`` does. The reference
-    also returns an auxiliary loss, which is zero for the dense family, and
-    takes embeddings in place of tokens for other input modes."""
-    _require_dense(cfg)
+    A given cache is written in place, layer by layer, and returned. With a
+    cache and one token, the mamba layers take the O(1) decode step (the
+    reference's rule, so a 1-token prompt decodes too). With ``train`` and
+    ``cfg.remat`` each layer (each group of a hybrid stack) runs under
+    activation checkpointing, as in the reference. The reference also
+    returns an auxiliary loss, which is zero for these families, and takes
+    embeddings in place of tokens for other input modes."""
+    _require_ported(cfg)
     x = embed_tokens(params["embed"], tokens, cfg.dtype)
     b, s = x.shape[:2]
     base = cache_index if cache_index is not None else 0
     positions = (base + torch.arange(s, device=x.device))[None, :].expand(b, s)
-    layers = tree_map(lambda t: t.unbind(0), params["layers"])
-    remat = train and cfg.remat
-    for i in range(cfg.n_layers):
-        lp = tree_map(lambda t: t[i], layers)
-        # layer i's K/V are views into the stacked cache: gqa_forward writes them in place
-        lcache = tree_map(lambda t: t[i], cache["layers"]) if cache is not None else None
-        if remat:
-            x = checkpoint(_dense_block, lp, x, cfg, positions, lcache, cache_index,
-                           use_reentrant=False)
-        else:
-            x = _dense_block(lp, x, cfg, positions, lcache, cache_index)
+    decode = cache is not None and s == 1
+    if cfg.family == "ssm":
+        lstate = cache["layers"] if cache is not None else None
+        x = _scan_mamba(params["layers"], cfg.n_layers, x, cfg, lstate, decode, train)
+    elif cfg.family == "hybrid":
+        x = _hybrid_forward(params, x, cfg, positions, cache, cache_index, decode, train)
+    else:
+        layers = tree_map(lambda t: t.unbind(0), params["layers"])
+        remat = train and cfg.remat
+        for i in range(cfg.n_layers):
+            lp = tree_map(lambda t: t[i], layers)
+            # layer i's K/V are views into the stacked cache: gqa_forward writes them in place
+            lcache = tree_map(lambda t: t[i], cache["layers"]) if cache is not None else None
+            if remat:
+                x = checkpoint(_dense_block, lp, x, cfg, positions, lcache, cache_index,
+                               use_reentrant=False)
+            else:
+                x = _dense_block(lp, x, cfg, positions, lcache, cache_index)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     if return_hidden:
         return x, cache
@@ -138,7 +282,7 @@ def train_loss(
     batch: Dict[str, torch.Tensor],
     ce_chunk: int = 512,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token CE loss + aux (zero for the dense family).
+    """Next-token CE loss + aux (zero for the ported families).
 
     As in the reference, the loss is computed in sequence chunks with
     rematerialization when ``s > 2 * ce_chunk`` and ``s % ce_chunk == 0``:
@@ -178,20 +322,33 @@ def train_loss(
     return loss, {"ce": ce, "aux": aux}
 
 
+def _stack(tree: Any, n: int) -> Any:
+    return tree_map(lambda sd: ((n,) + sd[0], sd[1]), tree)
+
+
 def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
-    """(shape, dtype) of every decode-cache leaf, stacked over layers."""
-    _require_dense(cfg)
-    per = gqa_cache_shape(
+    """(shape, dtype) of every decode-cache leaf, stacked over layers (and
+    groups). K/V are in the compute dtype; both mamba state leaves are f32."""
+    _require_ported(cfg)
+    if cfg.family == "dense":
+        per = gqa_cache_shape(
+            batch, max_seq, cfg.n_kv_heads or cfg.n_heads, cfg.resolved_head_dim, cfg.dtype
+        )
+        return {"layers": _stack(per, cfg.n_layers)}
+    mstate = mamba2_state_shape(batch, ssm_config(cfg), torch.float32)
+    if cfg.family == "ssm":
+        return {"layers": _stack(mstate, cfg.n_layers)}
+    ng, per_g, tail = hybrid_layout(cfg)
+    attn = gqa_cache_shape(
         batch, max_seq, cfg.n_kv_heads or cfg.n_heads, cfg.resolved_head_dim, cfg.dtype
     )
-    return {"layers": {k: ((cfg.n_layers,) + shp, dt) for k, (shp, dt) in per.items()}}
+    out = {"groups_mamba": _stack(_stack(mstate, per_g), ng), "groups_attn": _stack(attn, ng)}
+    if tail:
+        out["tail"] = _stack(mstate, tail)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device: Device = "cuda") -> Dict[str, Any]:
     dev = resolve_device(device)
-    return {
-        "layers": {
-            k: torch.zeros(shp, dtype=dt, device=dev)
-            for k, (shp, dt) in cache_spec(cfg, batch, max_seq)["layers"].items()
-        }
-    }
+    return tree_map(lambda sd: torch.zeros(sd[0], dtype=sd[1], device=dev),
+                    cache_spec(cfg, batch, max_seq))

@@ -1,9 +1,9 @@
 """Batched serving loop; counterpart of ``repro.runtime.serve_loop``.
 
-Continuous batching over a shared KV cache: requests are admitted
-earliest-deadline-first into free slots, each admission runs a batch-1
-prefill whose cache is copied into its slot, and each decode step advances
-every live slot by one greedy token.
+Continuous batching over a shared decode cache (K/V, SSM states, or both):
+requests are admitted earliest-deadline-first into free slots, each
+admission runs a batch-1 prefill whose cache is copied into its slot, and
+each decode step advances every live slot by one greedy token.
 
 The reference's behaviour is kept as it is, quirks included: prefill runs at
 cache index 0 and attends only within the prompt; every slot decodes at
@@ -23,12 +23,8 @@ import torch
 
 from repro_torch.device import Device, resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import init_cache
+from repro_torch.models.transformer import init_cache, model_spec
 from repro_torch.runtime.step_builder import make_decode_step, make_prefill_step
-
-# RMSNorm scales: the reference casts them to f32 at every use
-_NORM_KEYS = ("scale", "q_norm", "k_norm")
-
 
 @dataclass
 class Request:
@@ -82,13 +78,14 @@ class AdmissionQueue:
         return len(self._heap)
 
 
-def _compute_params(params: Any, dtype: torch.dtype, device: torch.device) -> Any:
-    """Parameters on ``device``, cast once to the compute dtype (RMSNorm
-    scales to f32): the values the reference casts to at every call."""
+def _compute_params(params: Any, spec: Any, dtype: torch.dtype, device: torch.device) -> Any:
+    """Parameters on ``device``, cast once to the compute dtype (the leaves
+    whose ``ParamSpec`` says ``f32_at_use`` to f32): the values the
+    reference casts to at every call."""
     if isinstance(params, dict):
         return {
-            k: (_compute_params(v, dtype, device) if isinstance(v, dict)
-                else v.to(device=device, dtype=torch.float32 if k in _NORM_KEYS else dtype))
+            k: (_compute_params(v, spec[k], dtype, device) if isinstance(v, dict)
+                else v.to(device=device, dtype=torch.float32 if spec[k].f32_at_use else dtype))
             for k, v in params.items()
         }
     raise TypeError(f"parameters must be nested dicts of tensors, got {type(params)}")
@@ -109,7 +106,7 @@ class BatchServer:
             raise ValueError("encoder-only archs don't serve decode")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = _compute_params(params, cfg.dtype, self.device)
+        self.params = _compute_params(params, model_spec(cfg), cfg.dtype, self.device)
         self.slots = batch_slots
         self.max_seq = max_seq
         self._prefill = make_prefill_step(cfg)

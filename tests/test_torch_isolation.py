@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.swiglu import ops as swiglu_ops  # noqa: E402
 from repro_torch.models import init_cache, init_params, model_spec, params_from_jax  # noqa: E402
 from repro_torch.runtime import BatchServer  # noqa: E402
@@ -40,9 +41,9 @@ def test_imports_nothing_of_jax_or_repro():
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # every module of the package was walked: 63 with the train-loop slice
-    # (checkpoint, distributed, int8_quant, optim.compression, train_loop)
-    assert int(proc.stdout.split()[-1]) >= 63
+    # every module of the package was walked: 69 with the SSM serving slice
+    # (kernels.ssd_scan and its ops and ref, models.ssm, two configs)
+    assert int(proc.stdout.split()[-1]) >= 69
 
 
 def test_entry_points_raise_without_card():
@@ -68,3 +69,6 @@ def test_wrappers_take_no_plain_path_off_the_cpu():
         rms_ops.rmsnorm(x, torch.ones(8, device="meta"))
     with pytest.raises(ValueError):
         swiglu_ops.swiglu(x, x)
+    with pytest.raises(ValueError):
+        ssd_ops.ssd_scan(x.view(1, 2, 2, 4), x[0, :4].view(1, 2, 2), x[0, :2],
+                         x.view(1, 2, 2, 4)[:, :, :1], x.view(1, 2, 2, 4)[:, :, :1])

@@ -33,6 +33,8 @@ from repro_torch.kernels.quorum_compare import ops as quorum_ops  # noqa: E402
 from repro_torch.kernels.quorum_compare.ref import quorum_compare_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.swiglu import ops as swiglu_ops  # noqa: E402
 from repro_torch.kernels.swiglu.ref import swiglu_bwd_ref, swiglu_ref  # noqa: E402
 
@@ -50,6 +52,16 @@ SWIGLU_SHAPES = [(16, 128), (5, 100, 128), (1, 7, 384)]
 # the backward sweep adds GQA with D=48 (ragged lanes) to FLASH_CASES
 FLASH_BWD_CASES = FLASH_CASES + [(1, 130, 4, 2, 48, False, "float32"),
                                  (1, 130, 4, 2, 48, True, "bfloat16")]
+# (b, s, h, p, g, n, with initial state, dtype): the mamba2 and zamba2
+# prefill shapes, a ragged S, groups, a ragged P tile and N = 256
+SSD_CASES = [
+    (1, 700, 24, 64, 1, 128, False, "bfloat16"),
+    (1, 700, 24, 64, 1, 128, True, "float32"),
+    (1, 700, 64, 64, 1, 64, False, "bfloat16"),
+    (2, 200, 8, 32, 2, 32, True, "float32"),
+    (1, 130, 4, 40, 2, 16, True, "float32"),
+    (3, 1, 6, 16, 3, 256, True, "bfloat16"),
+]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -446,3 +458,47 @@ class TestKernelsOnCard:
         # a misaligned view takes the scalar loop
         nb1, _ = quorum_ops.quorum_compare(a[1:], b[1:], rtol=1e-4, atol=1e-6)
         assert int(nb1) == int(quorum_compare_ref(a[1:], b[1:], 1e-4, 1e-6)[0])
+
+    @pytest.mark.parametrize("b,s,h,p,g,n,with_init,dtype", SSD_CASES)
+    def test_ssd_scan(self, cuda, b, s, h, p, g, n, with_init, dtype):
+        x = torch.from_numpy(_normal(1, (b, s, h, p))).to(cuda, TORCH_DT[dtype])
+        dt = torch.nn.functional.softplus(torch.from_numpy(_normal(2, (b, s, h)))).to(cuda) * 0.05 + 0.001
+        A = -torch.exp(torch.from_numpy(_normal(3, (h,))).to(cuda) * 0.3)
+        bm, cm = (torch.from_numpy(_normal(i, (b, s, g, n)) * 0.3).to(cuda, TORCH_DT[dtype]) for i in (4, 5))
+        init = torch.from_numpy(_normal(6, (b, h, p, n)) * 0.5).to(cuda) if with_init else None
+        launches = ssd_ops.launches
+        y, state = ssd_ops.ssd_scan(x, dt, A, bm, cm, initial_state=init)
+        torch.cuda.synchronize()
+        assert ssd_ops.launches == launches + 1
+        assert y.dtype == x.dtype and state.dtype == torch.float32
+        want_y, want_state = ssd_scan_ref(x, dt, A, bm, cm, block_q=256, initial_state=init)
+        tol = 1e-4 if dtype == "float32" else 2e-2
+        torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(state, want_state, atol=1e-4, rtol=1e-4)
+
+    def test_ssd_scan_against_the_sequential_oracle(self, cuda):
+        # the reference test's tolerance (tests/test_kernels.py): 3e-4 in f32
+        b, s, h, p, g, n = 1, 200, 8, 32, 2, 32
+        x = torch.from_numpy(_normal(1, (b, s, h, p))).to(cuda)
+        dt = torch.nn.functional.softplus(torch.from_numpy(_normal(2, (b, s, h)))).to(cuda) * 0.05 + 0.001
+        A = -torch.exp(torch.from_numpy(_normal(3, (h,))).to(cuda) * 0.3)
+        bm, cm = (torch.from_numpy(_normal(i, (b, s, g, n)) * 0.3).to(cuda) for i in (4, 5))
+        y, state = ssd_ops.ssd_scan(x, dt, A, bm, cm)
+        want_y, want_state = ssd_ref(x, dt, A, bm, cm)
+        torch.testing.assert_close(y, want_y, atol=3e-4, rtol=3e-4)
+        torch.testing.assert_close(state, want_state, atol=3e-4, rtol=3e-4)
+
+    def test_ssd_scan_reads_strided_inputs_and_refuses_gradients(self, cuda):
+        # x, B and C as slices of one (B, S, d_xbc) activation, as the model has them
+        b, s, h, p, g, n = 1, 90, 4, 16, 1, 32
+        xbc = torch.from_numpy(_normal(7, (b, s, h * p + 2 * g * n))).to(cuda)
+        x = xbc[..., :h * p].view(b, s, h, p)
+        bm = xbc[..., h * p:h * p + g * n].view(b, s, g, n)
+        cm = xbc[..., h * p + g * n:].view(b, s, g, n)
+        dt = torch.full((b, s, h), 0.02, device=cuda)
+        A = -torch.ones(h, device=cuda)
+        y, state = ssd_ops.ssd_scan(x, dt, A, bm, cm)
+        y2, state2 = ssd_ops.ssd_scan(x.contiguous(), dt, A, bm.contiguous(), cm.contiguous())
+        assert torch.equal(y, y2) and torch.equal(state, state2)
+        with pytest.raises(NotImplementedError, match="backward"):
+            ssd_ops.ssd_scan(x.detach().requires_grad_(), dt, A, bm, cm)

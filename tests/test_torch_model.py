@@ -9,7 +9,8 @@ the port's in f32). At bf16 the logits are held element by element; the KV
 cache, whose entries reach |x| ~ 20 where one bf16 step is 0.125, is held to
 2e-2 of its largest entry, because both packages are that far from the f32
 result there.
-Configs are compared field by field.
+Configs of every ported arch, full and smoke, are compared field by field,
+with ``param_count()`` and ``train_flops_per_token()``.
 """
 import dataclasses
 
@@ -28,7 +29,7 @@ from repro.models import model_spec as j_model_spec  # noqa: E402
 from repro.models.transformer import init_cache as j_init_cache  # noqa: E402
 from repro.runtime import make_decode_step as j_make_decode_step  # noqa: E402
 from repro.runtime import make_prefill_step as j_make_prefill_step  # noqa: E402
-from repro_torch.configs import ARCHS, get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import ARCHS, PORTED, get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     forward,
     init_cache,
@@ -77,10 +78,19 @@ def ref_params():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("getters", [(j_get_config, get_config), (j_get_smoke_config, get_smoke_config)],
-                         ids=["full", "smoke"])
-def test_config_matches_reference(getters):
-    j_cfg, t_cfg = getters[0](ARCH), getters[1](ARCH)
+# ids: "full"/"smoke" for qwen3 (as before the other archs were ported),
+# "full-<arch>"/"smoke-<arch>" for the others
+CONFIG_CASES = [
+    pytest.param(getters, arch, id=kind if arch == ARCH else f"{kind}-{arch}")
+    for arch in PORTED
+    for kind, getters in (("full", (j_get_config, get_config)),
+                          ("smoke", (j_get_smoke_config, get_smoke_config)))
+]
+
+
+@pytest.mark.parametrize("getters,arch", CONFIG_CASES)
+def test_config_matches_reference(getters, arch):
+    j_cfg, t_cfg = getters[0](arch), getters[1](arch)
     j_fields = [f.name for f in dataclasses.fields(j_cfg)]
     assert j_fields == [f.name for f in dataclasses.fields(t_cfg)]
     for name in j_fields:
@@ -93,11 +103,13 @@ def test_config_matches_reference(getters):
     assert t_cfg.padded_vocab == j_cfg.padded_vocab
     assert t_cfg.causal == j_cfg.causal and t_cfg.has_decode == j_cfg.has_decode
     assert t_cfg.param_count() == j_cfg.param_count()
+    assert t_cfg.train_flops_per_token() == j_cfg.train_flops_per_token()
 
 
 def test_unported_archs_raise():
+    assert set(PORTED) == {"qwen3-0.6b", "mamba2-130m", "zamba2-1.2b"}
     for arch in ARCHS:
-        if arch != ARCH:
+        if arch not in PORTED:
             with pytest.raises(NotImplementedError, match="not yet ported"):
                 get_config(arch)
     with pytest.raises(KeyError):
