@@ -18,7 +18,15 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    calls; for a backward kernel, the device time of autograd's backward of
    the library call), its wall time per call between CUDA events (host
    launch cost included), and the least time the card could take (bytes at
-   3.35 TB/s or operations at the peak rate of their type). quorum_compare
+   3.35 TB/s or operations at the peak rate of their type). Flash
+   attention is held in bf16 (the tensor-core kernels) at the training
+   shape, the serving prompts, zamba2's (1, 700, 32/32, 64), a ragged S with
+   D = 48, GQA without the causal mask, q/k/v sliced from one fused
+   projection and rows that are not 16-byte aligned (the 2-byte staging),
+   forward and backward; in f32 (the scalar kernels) at the training shape
+   and two small ones. Each flash row names the kernels the profiler saw
+   (mma for bf16, scalar for f32), and every backward is run twice more on
+   the same inputs and must give the same bits. quorum_compare
    also runs through the grid trainer's comparator on NaN and inf leaves.
    The int8 quantize and dequantize kernels are held bit for bit (codes,
    scales, and dequantized values at f32 and bf16) at the embedding
@@ -33,7 +41,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    64-700 prompt tokens, 32 new tokens each, EDF deadlines. Every kernel
    counter is zeroed just before and read just after; each must show at
    least the launches the path implies. Then one prefill and one decode step
-   under ``torch.profiler`` for the device-time breakdown.
+   under ``torch.profiler`` for the device-time breakdown; the prefill's must
+   show the tensor-core flash kernel, and no profile a scalar one.
 4. The card's f32 prefill logits (kernels) against the port's CPU forward
    (plain versions) from the same parameters, for one 64-token prompt.
 5. Train qwen3-0.6b at full width through the volunteer grid
@@ -41,7 +50,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    simulated hosts with 5% erroneous and 15% malicious hosts. Every counter
    is zeroed just before and read just after; each of the seven (three
    forward, three backward, quorum_compare) must be non-zero. Then one grad
-   job under ``torch.profiler`` for the device-time breakdown.
+   job under ``torch.profiler`` for the device-time breakdown, which must
+   show the three tensor-core flash kernels and no scalar one.
 6. The card's f32 loss and gradients of one grad step (kernels) against the
    CPU's (plain versions): qwen3 widths at 2 layers, 1 x 256 tokens, the
    same parameters.
@@ -79,9 +89,11 @@ The line before the last is one JSON object ``{"kernels": [...]}`` with the
 numbers of this run (``launches``: the counts of the grid training run
 (phase 5) for the forward, backward and quorum kernels and of the
 compression run (phase 8) for the int8 kernels and of the mamba2 serving
-run (phase 9) for ssd_scan; ``launches_serve`` and ``launches_train_loop``,
-the serving run's and the training loop's, where the kernel runs there, and
-for ssd_scan ``launches_serve_zamba2``, phase 11's); the last line is
+run (phase 9) for ssd_scan and of the f32 grad step (phase 6) for the f32
+flash rows ``flash_attention_f32`` and ``flash_attention_bwd_f32``;
+``launches_serve`` and ``launches_train_loop``, the serving run's and the
+training loop's, where the kernel runs there, and for ssd_scan
+``launches_serve_zamba2``, phase 11's; ``kernel`` on the flash rows); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA card, or without the repository's ``src/`` beside it, the
 script exits non-zero and prints no result.
@@ -183,20 +195,115 @@ def profiled(fn, iters: int = 1):
     return {}, wall_ms
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, names: list | None = None) -> float:
     """Device time per call: the kernels' own durations from torch.profiler
     (CUPTI), summed, so host launch cost between kernels is left out. Where
-    the profiler records nothing, CUDA events around queued launches."""
+    the profiler records nothing, CUDA events around queued launches. The
+    port's kernels that the profiler saw (``short_kernel_names``) are
+    appended to ``names`` when it is given."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     dev_us, _ = profiled(fn, iters)
+    if names is not None:
+        names.extend(short_kernel_names(dev_us))
     if not dev_us:
         ms = queued_event_ms(fn, iters)
         log(f"device time from CUDA events around queued launches instead: {ms:.4f} ms")
         return ms
     return sum(dev_us.values()) / iters / 1e3
+
+
+# the f32 flash kernels; bf16 runs the tensor-core (mma) kernels
+SCALAR_FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+MMA_FLASH = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel")
+
+
+def short_kernel_names(dev_us) -> list:
+    """The port's kernels among the profiler's keys, as ``name<template
+    arguments>`` (e.g. ``flash_fwd_mma_kernel<128, true>``), sorted."""
+    import re
+
+    found = set()
+    for key in dev_us:
+        m = re.search(r"\b(\w+_kernel)(<[^>(]*>)?\(", key)
+        if m and "(anonymous namespace)::" in key:
+            found.add(m.group(1) + (m.group(2) or ""))
+    return sorted(found)
+
+
+def demangle_kernel(sym: str) -> str:
+    """``name<args>`` of a mangled kernel symbol with int, bool, float or
+    named template arguments (enough for the port's kernels)."""
+    import re
+
+    def name_at(end):  # the length-prefixed name that ends at ``end``
+        for start in range(1, end):
+            digits = re.search(r"\d+$", sym[:start])
+            if digits and any(int(digits.group()[i:]) == end - start
+                              for i in range(len(digits.group()))):
+                return sym[start:end]
+        return None
+
+    for m in re.finditer(r"_kernel(?=[IE])", sym):
+        name = name_at(m.end())
+        if name:
+            break
+    else:
+        return sym
+    if sym[m.end()] == "E":  # not a template
+        return name
+    rest, args = sym[m.end() + 1:], []
+    while rest and rest[0] != "E":
+        if t := re.match(r"Li(-?\d+)E", rest):
+            args.append(t.group(1))
+        elif t := re.match(r"Lb([01])E", rest):
+            args.append("true" if t.group(1) == "1" else "false")
+        elif t := re.match(r"f", rest):
+            args.append("float")
+        elif t := re.match(r"(\d+)", rest):
+            n = int(t.group(1))
+            args.append(rest[t.end():t.end() + n])
+            rest = rest[t.end() + n:]
+            continue
+        else:
+            break
+        rest = rest[t.end():]
+    return f"{name}<{', '.join(args)}>"
+
+
+def ptxas_usage(log: str) -> list:
+    """Per entry function of an ``nvcc -Xptxas -v`` log: registers a
+    thread, spill bytes (stores, loads) and static shared memory bytes."""
+    import re
+
+    rows = []
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            rows.append({"kernel": demangle_kernel(m.group(1))})
+        elif rows and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            rows[-1]["spill"] = (int(m.group(1)), int(m.group(2)))
+        elif rows and (m := re.search(r"Used (\d+) registers", line)):
+            rows[-1]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["smem_static"] = int(smem.group(1)) if smem else 0
+    return rows
+
+
+def check_flash_profile(dev_us, want, label: str) -> None:
+    """In a bf16 profile: every flash kernel named in ``want`` ran and no
+    scalar (f32) flash kernel did. A profile with no records is not checked,
+    which the log says."""
+    if not dev_us:
+        log(f"{label}: flash kernel names not checked (the profiler recorded nothing)")
+        return
+    names = short_kernel_names(dev_us)
+    missing = [w for w in want if not any(n.split("<")[0] == w for n in names)]
+    scalar = [n for n in names if n.split("<")[0] in SCALAR_FLASH]
+    if missing or scalar:
+        raise AssertionError(f"{label}: flash kernels {names}: missing {missing}, scalar {scalar}")
+    log(f"{label}: flash kernels in the profile {[n for n in names if n.startswith('flash')]}")
 
 
 def profile_breakdown(fn, label: str, top: int = 10):
@@ -287,6 +394,17 @@ def main() -> int:
         raise AssertionError(f"built {sorted(nvcc_s)}, expected six libraries")
     log(f"[1] built {', '.join(nvcc_s)} in {time.perf_counter() - t0:.2f} s wall "
         f"(nvcc s: {json.dumps({k: round(v, 2) for k, v in nvcc_s.items()})})")
+    for lib, text in sorted(_build.logs.items()):  # -Xptxas -v: flash per kernel, others in sum
+        usage = ptxas_usage(text)
+        if lib == "flash_attention":
+            for u in usage:
+                log(f"[1] ptxas {u['kernel']}: registers {u.get('registers')}, spill bytes "
+                    f"(stores, loads) {u.get('spill')}, static smem {u.get('smem_static')}")
+            continue
+        regs = [u.get("registers", 0) for u in usage]
+        spills = [u["kernel"] for u in usage if any(u.get("spill", (0, 0)))]
+        log(f"[1] ptxas {lib}: {len(usage)} kernels, registers {min(regs, default=0)}-"
+            f"{max(regs, default=0)}, spilling {spills or 'none'}")
 
     # ---- 2. kernels against their plain versions --------------------------
     cfg = get_config("qwen3-0.6b")
@@ -321,8 +439,9 @@ def main() -> int:
         lib = None
         if library is not None:
             lib = library if library.__code__.co_argcount == 0 else (lambda: library(*args))
+        seen = []
         rec = {
-            "ms": device_ms(lambda: kernel(*args)),
+            "ms": device_ms(lambda: kernel(*args), names=seen),
             "plain_ms": device_ms(lambda: plain(*args)),
             "library_ms": device_ms(lib) if lib else None,
             "call_ms": time_ms(lambda: kernel(*args)),
@@ -331,11 +450,13 @@ def main() -> int:
         }
         rec["bound_ms"] = max(rec["bytes_ms"], rec["ops_ms"])
         rec["bound_by"] = "bytes" if rec["bytes_ms"] >= rec["ops_ms"] else "operations"
-        rec.update(max_abs_err=err, tol=tol, shape=shape_desc, dtype=str(dtype).replace("torch.", ""))
+        rec.update(max_abs_err=err, tol=tol, shape=shape_desc, dtype=str(dtype).replace("torch.", ""),
+                   kernels=sorted(set(seen)))
         log(f"[2] {name:20s} {shape_desc:28s} {rec['dtype']:9s} max_abs_err {err:.3e} (tol {tol}) "
             f"kernel_ms {rec['ms']:.4f} (call {rec['call_ms']:.4f}) plain_ms {rec['plain_ms']:.4f} "
             f"library_ms {rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 4)} "
-            f"bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']})")
+            f"bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']})"
+            + (f" kernels {rec['kernels']}" if name.startswith("flash") else ""))
         return rec
 
     def check_rms(rows, width, dtype, tol):
@@ -356,21 +477,53 @@ def main() -> int:
                      lambda g, u: F.silu(g) * u, (g, u), tol, 3 * n * esize(dtype), 6 * n,
                      PEAK_OPS["float32"])
 
-    def check_flash(s, heads, kv, dim, dtype, tol, b=1, with_lse=False):
-        q = randn(b, s, heads, dim, dtype=dtype)
-        k, v = randn(b, s, kv, dim, dtype=dtype), randn(b, s, kv, dim, dtype=dtype)
-        pairs = b * s * (s + 1) // 2
-        return check("flash_attention", f"({b}, {s}, {heads}/{kv}, {dim}) causal", dtype,
-                     lambda q, k, v: flash_ops.flash_attention_fwd(q, k, v, causal=True,
-                                                                   with_lse=with_lse)[0],
-                     lambda q, k, v: attention_ref(q.movedim(1, 2), k.movedim(1, 2),
-                                                   v.movedim(1, 2), causal=True).movedim(1, 2),
-                     lambda q, k, v: F.scaled_dot_product_attention(
-                         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                         is_causal=True, enable_gqa=True),
-                     (q, k, v), tol, 2 * b * s * (heads + kv) * dim * esize(dtype) + 4 * b * heads * s * with_lse,
-                     4 * heads * dim * pairs,
-                     PEAK_OPS[str(dtype).replace("torch.", "")])
+    def flash_inputs(b, s, heads, kv, dim, dtype, layout="contiguous", extra=()):
+        """q, k, v on the model layout, and ``extra`` (B, S, H, D) tensors
+        (dO): contiguous; "fused", slices of one (B, S, H + 2 KV, D)
+        projection (strided heads, no copy); or "wide", the first ``dim`` of
+        ``dim + 4`` columns (rows not 16-byte aligned: the 2-byte staging)."""
+        if layout == "fused":
+            qkv = randn(b, s, heads + 2 * kv, dim, dtype=dtype)
+            qkv_ = (qkv[:, :, :heads], qkv[:, :, heads:heads + kv], qkv[:, :, heads + kv:])
+            return qkv_ + tuple(randn(b, s, heads, dim, dtype=dtype) for _ in extra)
+        width = dim + 4 if layout == "wide" else dim
+        return tuple(randn(b, s, n, width, dtype=dtype)[..., :dim] for n in (heads, kv, kv, *extra))
+
+    def flash_kernels_ran(rec, names, dtype, layout, label):
+        """The profiled launches ran the tensor-core kernels for bf16 (the
+        2-byte staging variant for the "wide" layout) and the scalar ones
+        for f32; not checked where the profiler recorded nothing."""
+        seen = rec["kernels"]
+        if not seen:
+            log(f"[2] {label}: kernel names not checked (the profiler recorded nothing)")
+            return
+        want = [n + ("<float>" if dtype == f32 else "") for n in names]
+        ok = all(any(k.startswith(w) for k in seen) for w in want) and len(seen) == len(want)
+        if dtype == bf and ok:
+            ok = all(k.endswith("false>" if layout == "wide" else "true>") for k in seen)
+        if not ok:
+            raise AssertionError(f"{label} {dtype} {layout}: ran {seen}, want {want}")
+
+    def check_flash(s, heads, kv, dim, dtype, tol, b=1, with_lse=False, causal=True,
+                    layout="contiguous"):
+        q, k, v = flash_inputs(b, s, heads, kv, dim, dtype, layout)
+        pairs = b * s * (s + 1) // 2 if causal else b * s * s
+        rec = check("flash_attention", f"({b}, {s}, {heads}/{kv}, {dim}) "
+                    f"{'causal' if causal else 'full'}{'' if layout == 'contiguous' else ' ' + layout}",
+                    dtype,
+                    lambda q, k, v: flash_ops.flash_attention_fwd(q, k, v, causal=causal,
+                                                                  with_lse=with_lse)[0],
+                    lambda q, k, v: attention_ref(q.movedim(1, 2), k.movedim(1, 2),
+                                                  v.movedim(1, 2), causal=causal).movedim(1, 2),
+                    lambda q, k, v: F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        is_causal=causal, enable_gqa=True),
+                    (q, k, v), tol, 2 * b * s * (heads + kv) * dim * esize(dtype) + 4 * b * heads * s * with_lse,
+                    4 * heads * dim * pairs,
+                    PEAK_OPS[str(dtype).replace("torch.", "")])
+        flash_kernels_ran(rec, MMA_FLASH[:1] if dtype == bf else SCALAR_FLASH[:1], dtype, layout,
+                          "flash_attention")
+        return rec
 
     bf, f32 = torch.bfloat16, torch.float32
     s_max = 700  # the longest prompt of phase 3
@@ -393,6 +546,18 @@ def main() -> int:
     check_flash(s_max, H, KV, hd, bf, 2e-2)
     check_flash(130, H, KV, hd, f32, 2e-5)
     check_flash(130, 4, 2, 48, f32, 2e-5)
+    # zamba2's shared attention block at its prefill shape; a ragged S with
+    # D = 48 (padded to 64); GQA without the causal mask; q, k and v as
+    # slices of one fused projection (96-byte rows); rows that are not
+    # 16-byte aligned, which take the 2-byte staging
+    check_flash(s_max, 32, 32, 64, bf, 2e-2)
+    check_flash(130, 4, 2, 48, bf, 2e-2)
+    check_flash(256, 8, 2, 128, bf, 2e-2, causal=False)
+    check_flash(150, 4, 2, 48, bf, 2e-2, layout="fused")
+    check_flash(130, 4, 2, 40, bf, 2e-2, layout="wide")
+    # the scalar f32 kernel at the training shape: its own row
+    results["flash_attention_f32"] = check_flash(TRAIN_SEQ, H, KV, hd, f32, 2e-5, b=TRAIN_BATCH,
+                                                 with_lse=True)
 
     # backward kernels at the training path's shapes (2 x 2048 tokens)
     def autograd_bwd(fn, inputs, dy):
@@ -400,6 +565,7 @@ def main() -> int:
         ``fn`` (one forward here, the backward timed alone)."""
         leaves = [t.detach().clone().requires_grad_() for t in inputs]
         y = fn(*leaves)
+        dy = dy.contiguous()  # cuDNN's attention backward refuses unaligned rows
         return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
 
     def check_rms_bwd(rows, width, dtype, tol):
@@ -422,31 +588,47 @@ def main() -> int:
                      swiglu_bwd_ref, lib, (g, u, dh), tol, 5 * n * esize(dtype), 14 * n,
                      PEAK_OPS["float32"])
 
-    def check_flash_bwd(b, s, heads, kv, dim, dtype, tol):
-        q, do = randn(b, s, heads, dim, dtype=dtype), randn(b, s, heads, dim, dtype=dtype)
-        k, v = randn(b, s, kv, dim, dtype=dtype), randn(b, s, kv, dim, dtype=dtype)
-        out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
+    def check_flash_bwd(b, s, heads, kv, dim, dtype, tol, causal=True, layout="contiguous"):
+        if layout == "contiguous":
+            q, do = randn(b, s, heads, dim, dtype=dtype), randn(b, s, heads, dim, dtype=dtype)
+            k, v = randn(b, s, kv, dim, dtype=dtype), randn(b, s, kv, dim, dtype=dtype)
+        else:
+            q, k, v, do = flash_inputs(b, s, heads, kv, dim, dtype, layout, extra=(heads,))
+        out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
         want_out, want_lse = attention_ref(q.movedim(1, 2), k.movedim(1, 2), v.movedim(1, 2),
-                                           causal=True, return_lse=True)
+                                           causal=causal, return_lse=True)
         lse_err = (lse - want_lse).abs().max().item()
         out_err = (out.float() - want_out.movedim(1, 2).float()).abs().max().item()
         if lse_err > 1e-3 or out_err > tol:
             raise AssertionError(f"flash forward with lse: lse err {lse_err}, out err {out_err}")
         log(f"[2] flash forward with lse ({b}, {s}, {heads}/{kv}, {dim}) {dtype}: "
             f"lse max abs err {lse_err:.3e} (tol 1e-3), out max abs err {out_err:.3e}")
-        pairs = s * (s + 1) // 2
+        pairs = s * (s + 1) // 2 if causal else s * s
         lib = autograd_bwd(lambda q, k, v: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
             enable_gqa=True).transpose(1, 2), (q, k, v), do)
         es = esize(dtype)
         nbytes = b * s * (4 * heads + 4 * kv) * dim * es + b * heads * s * 4  # + lse
-        return check("flash_attention_bwd", f"({b}, {s}, {heads}/{kv}, {dim}) causal", dtype,
-                     lambda q, k, v, o, l, g: flash_ops.flash_attention_bwd(q, k, v, o, l, g),
-                     lambda q, k, v, o, l, g: tuple(t.movedim(1, 2) for t in attention_bwd_ref(
-                         q.movedim(1, 2), k.movedim(1, 2), v.movedim(1, 2), o.movedim(1, 2), l,
-                         g.movedim(1, 2), causal=True)),
-                     lib, (q, k, v, out, lse, do), tol, nbytes,
-                     2.5 * 4 * b * heads * dim * pairs, PEAK_OPS[str(dtype).replace("torch.", "")])
+        rec = check("flash_attention_bwd",
+                    f"({b}, {s}, {heads}/{kv}, {dim}) "
+                    f"{'causal' if causal else 'full'}{'' if layout == 'contiguous' else ' ' + layout}",
+                    dtype,
+                    lambda q, k, v, o, l, g: flash_ops.flash_attention_bwd(q, k, v, o, l, g,
+                                                                           causal=causal),
+                    lambda q, k, v, o, l, g: tuple(t.movedim(1, 2) for t in attention_bwd_ref(
+                        q.movedim(1, 2), k.movedim(1, 2), v.movedim(1, 2), o.movedim(1, 2), l,
+                        g.movedim(1, 2), causal=causal)),
+                    lib, (q, k, v, out, lse, do), tol, nbytes,
+                    2.5 * 4 * b * heads * dim * pairs, PEAK_OPS[str(dtype).replace("torch.", "")])
+        flash_kernels_ran(rec, MMA_FLASH[1:] if dtype == bf else SCALAR_FLASH[1:], dtype, layout,
+                          "flash_attention_bwd")
+        # no float atomics: two calls on the same inputs give the same bits
+        first = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        again = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            raise AssertionError(f"flash backward ({b}, {s}, {heads}/{kv}, {dim}) {dtype}: two calls "
+                                 f"on the same inputs differ")
+        return rec
 
     results["rmsnorm_bwd"] = check_rms_bwd(n_tok, d, bf, 2e-2)
     check_rms_bwd(n_tok * H, hd, bf, 2e-2)  # qk-norm rows
@@ -457,8 +639,17 @@ def main() -> int:
     check_swiglu_bwd(n_tok, ff, f32, 1e-5)
     results["flash_attention_bwd"] = check_flash_bwd(TRAIN_BATCH, TRAIN_SEQ, H, KV, hd, bf, 2e-2)
     # f32 at 1e-4: dQ, dK and dV sum up to 2048 keys or queries per element
-    check_flash_bwd(TRAIN_BATCH, TRAIN_SEQ, H, KV, hd, f32, 1e-4)
+    results["flash_attention_bwd_f32"] = check_flash_bwd(TRAIN_BATCH, TRAIN_SEQ, H, KV, hd, f32, 1e-4)
     check_flash_bwd(1, 130, 4, 2, 48, f32, 2e-5)
+    # the bf16 shapes of the forward's list: serving prompts, zamba2's
+    # block, ragged, no causal mask, fused, 2-byte staging
+    check_flash_bwd(1, 300, H, KV, hd, bf, 2e-2)
+    check_flash_bwd(1, s_max, H, KV, hd, bf, 2e-2)
+    check_flash_bwd(1, s_max, 32, 32, 64, bf, 2e-2)
+    check_flash_bwd(1, 130, 4, 2, 48, bf, 2e-2)
+    check_flash_bwd(1, 256, 8, 2, 128, bf, 2e-2, causal=False)
+    check_flash_bwd(1, 150, 4, 2, 48, bf, 2e-2, layout="fused")
+    check_flash_bwd(1, 130, 4, 2, 40, bf, 2e-2, layout="wide")
 
     # quorum_compare on a pair of embedding-gradient-sized leaves
     rows_e = cfg.padded_vocab
@@ -650,7 +841,10 @@ def main() -> int:
                             ("decode x4", lambda: decode(server.params, dec_toks, batch_cache, s_max))):
             step()
             torch.cuda.synchronize()
-            profile_breakdown(step, f"[{tag}] {label}", top=8)
+            dev_us, _ = profile_breakdown(step, f"[{tag}] {label}", top=8)
+            # bf16 attention runs the tensor-core flash kernel; no scalar one
+            check_flash_profile(dev_us, MMA_FLASH[:1] if label.startswith("prefill") and
+                                implied(1)["flash_attention"] else (), f"[{tag}] {label}")
         del server, one, batch_cache
         torch.cuda.empty_cache()
         return launches, params
@@ -739,6 +933,7 @@ def main() -> int:
     grad_step = make_grad_step(cfg)
     dev_us, job_wall = profile_breakdown(lambda: grad_step(trainer.params, batch), "[5] grad job",
                                          top=14)
+    check_flash_profile(dev_us, MMA_FLASH, "[5] grad job")
     busy = sum(dev_us.values())
     groups = {
         "flash_bwd": lambda k: "flash_bwd" in k,
@@ -767,6 +962,7 @@ def main() -> int:
     after = counts()
     if any(after[k] <= before[k] for k in ("rmsnorm_bwd", "swiglu_bwd", "flash_attention_bwd")):
         raise AssertionError("the f32 grad step skipped a backward kernel")
+    f32_launches = {k: after[k] - before[k] for k in after}  # the scalar flash kernels' runs
     g_cpu, m_cpu = step6(tree_map(lambda x: x.cpu(), p6), b6)
     loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"]))
     # per leaf: |card - cpu| <= 1e-3 |cpu| + 1e-4 max|cpu| (f32 sums over 256
@@ -970,26 +1166,37 @@ def main() -> int:
         "rmsnorm_bwd": "src/repro/kernels/rmsnorm/kernel.py:17",
         "swiglu_bwd": "src/repro/kernels/swiglu/kernel.py:12",
         "flash_attention_bwd": "src/repro/kernels/flash_attention/kernel.py:30",
+        # the f32 scalar flash kernels, run by the f32 checks (phases 4, 6, 10, 12)
+        "flash_attention_f32": "src/repro/kernels/flash_attention/kernel.py:30",
+        "flash_attention_bwd_f32": "src/repro/kernels/flash_attention/kernel.py:30",
     }
     sources = {"int8_quantize": "int8_quant", "int8_dequantize": "int8_quant"}
     main_launches = {**train_launches, "int8_quantize": comp_launches["int8_quantize"],
                      "int8_dequantize": comp_launches["int8_dequantize"],
-                     "ssd_scan": mamba_launches["ssd_scan"]}
+                     "ssd_scan": mamba_launches["ssd_scan"],
+                     # f32 rows: the f32 grad step's launches (phase 6)
+                     "flash_attention_f32": f32_launches["flash_attention"],
+                     "flash_attention_bwd_f32": f32_launches["flash_attention_bwd"]}
     kernels = []
     for name, rec in results.items():
+        base = name.replace("_f32", "")
         row = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{sources.get(name, name.replace('_bwd', ''))}.cu",
+            "source": f"src/repro_torch/csrc/{sources.get(name, base.replace('_bwd', ''))}.cu",
             "replaces": replaces[name], "launches": main_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "call_ms": rec["call_ms"], "shape": rec["shape"],
             "dtype": rec["dtype"],
         }
+        if base.startswith("flash"):
+            row["kernel"] = rec["kernels"]  # mma (bf16) or scalar (f32), as profiled
         if name in ops:
             row["launches_serve"] = launches[name]
         if name in ops or name in bwd_ops:
             row["launches_train_loop"] = loop_launches[name]
+        if name.endswith("_f32"):
+            row["launches_in"] = "phase 6, the f32 grad step"
         if name == "ssd_scan":
             row["launches_serve"] = mamba_launches[name]
             row["launches_serve_zamba2"] = zamba_launches[name]

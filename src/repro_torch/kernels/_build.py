@@ -30,9 +30,12 @@ NAMES: Tuple[str, ...] = ("rmsnorm", "swiglu", "flash_attention", "quorum_compar
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # each kernel's registers, spills and shared memory, into ``logs``
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# the compiler's output of each library built by this process
+logs: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -76,6 +79,7 @@ def build(names: Iterable[str] = NAMES) -> Dict[str, float]:
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        logs[name] = log
         if proc.returncode != 0:
             failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
             continue

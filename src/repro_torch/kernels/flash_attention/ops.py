@@ -2,17 +2,32 @@
 backward: the CUDA kernels (``csrc/flash_attention.cu``) for CUDA tensors,
 the plain versions (``ref.py``) for CPU tensors.
 
+They replace the Pallas TPU kernel
+``src/repro/kernels/flash_attention/kernel.py`` (``_flash_kernel``); the
+backward has no TPU kernel (the reference differentiates its jnp attention
+with XLA). bf16 runs the tensor-core kernels (``mma.sync`` with bf16
+operands and f32 accumulators, tiles copied by ``cp.async`` in a 2-stage
+ring); f32 runs the scalar f32 kernels, since an f32 product on the tensor
+cores would be TF32. The C entry points choose by dtype. Bound on the
+card: at the training shape the operations at the type's peak rate, at
+short serving prompts about equally the bytes; the bf16 kernels round P
+and dS to bf16 before their products, the one rounding the Pallas kernel
+does not have (softmax, lse and Delta stay f32).
+
 The kernels read q, k and v through their strides, so neither the transpose
 to ``(B, H, S, D)`` nor the reference wrapper's padding of the sequence to
 block multiples and of D to 128 lanes is needed. Query head h reads KV head
-``h // (H // KV)``; ``sm_scale`` is ``1/sqrt(D)``.
+``h // (H // KV)``; ``sm_scale`` is ``1/sqrt(D)``. In bf16, rows whose
+base or stride is not 16-byte aligned (or D not a multiple of 8) are
+staged with 2-byte loads instead of 16-byte copies.
 
 ``flash_attention`` goes through a ``torch.autograd.Function`` when a
 gradient is wanted: its forward also writes the rows' log-sum-exp, which
 the backward kernels (dQ, then dK/dV) read. Serving calls the forward alone,
 with no log-sum-exp. ``launches`` counts forward launches and
 ``launches_bwd`` backward calls (each two CUDA launches); the CPU path
-leaves them alone.
+leaves them alone. No kernel uses a float atomic: equal inputs give
+bit-equal gradients.
 """
 from __future__ import annotations
 

@@ -52,6 +52,11 @@ SWIGLU_SHAPES = [(16, 128), (5, 100, 128), (1, 7, 384)]
 # the backward sweep adds GQA with D=48 (ragged lanes) to FLASH_CASES
 FLASH_BWD_CASES = FLASH_CASES + [(1, 130, 4, 2, 48, False, "float32"),
                                  (1, 130, 4, 2, 48, True, "bfloat16")]
+# bf16 cases for the tensor-core kernels on the card: zamba2's shared
+# attention block at its prefill shape, a ragged S with D = 48 (padded to
+# 64), GQA without the causal mask
+FLASH_BF16_CASES = [(1, 700, 32, 32, 64, True, "bfloat16"), (1, 130, 4, 2, 48, True, "bfloat16"),
+                    (1, 256, 8, 2, 128, False, "bfloat16")]
 # (b, s, h, p, g, n, with initial state, dtype): the mamba2 and zamba2
 # prefill shapes, a ragged S, groups, a ragged P tile and N = 256
 SSD_CASES = [
@@ -368,7 +373,8 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize(
         "b,s,h,kv,d,causal,dtype",
         FLASH_CASES + [(1, 300, 16, 8, 128, True, "bfloat16"), (1, 700, 16, 8, 128, True, "bfloat16"),
-                       (2, 97, 6, 3, 128, True, "float32"), (1, 1, 16, 8, 128, True, "bfloat16")],
+                       (2, 97, 6, 3, 128, True, "float32"), (1, 1, 16, 8, 128, True, "bfloat16")]
+        + FLASH_BF16_CASES,
     )
     def test_flash_attention(self, cuda, b, s, h, kv, d, causal, dtype):
         q, k, v = (torch.from_numpy(_normal(i, shp)).to(cuda, TORCH_DT[dtype]) for i, shp in
@@ -390,6 +396,61 @@ class TestKernelsOnCard:
         out = flash_ops.flash_attention(q, k, v, causal=True)
         want = flash_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
         torch.testing.assert_close(out, want, atol=0, rtol=0)
+
+    @staticmethod
+    def _flash_both_ways(q, k, v, do, causal):
+        """Forward (with lse) and backward through the kernels, each held
+        against its plain version at bf16's 2e-2; returns (out, dq, dk, dv)."""
+        out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
+        want_out, want_lse = attention_ref(q.movedim(1, 2), k.movedim(1, 2), v.movedim(1, 2),
+                                           causal=causal, return_lse=True)
+        torch.testing.assert_close(out.float(), want_out.movedim(1, 2).float(), atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+        grads = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        want = attention_bwd_ref(q.movedim(1, 2), k.movedim(1, 2), v.movedim(1, 2),
+                                 out.movedim(1, 2), lse, do.movedim(1, 2), causal=causal)
+        for got, w in zip(grads, want):
+            torch.testing.assert_close(got.float(), w.movedim(1, 2).float(), atol=2e-2, rtol=2e-2)
+        return (out, *grads)
+
+    def test_flash_bf16_reads_strided_qkv(self, cuda):
+        # q, k, v as slices of one fused projection with D = 48: 96-byte rows,
+        # 16-byte aligned, so the 16-byte copies read them in place; the
+        # results equal those of contiguous copies bit for bit
+        b, s, h, kv, d = 1, 150, 4, 2, 48
+        qkv = torch.from_numpy(_normal(5, (b, s, h + 2 * kv, d))).to(cuda, torch.bfloat16)
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+        do = torch.from_numpy(_normal(6, (b, s, h, d))).to(cuda, torch.bfloat16)
+        got = self._flash_both_ways(q, k, v, do, True)
+        want = self._flash_both_ways(q.contiguous(), k.contiguous(), v.contiguous(), do, True)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+    @pytest.mark.parametrize("d,width", [(40, 44), (36, 36)])
+    def test_flash_bf16_two_byte_staging(self, cuda, d, width):
+        # rows that the 16-byte copies cannot read: D = 40 as the first 40 of
+        # 44 columns (88-byte rows), and D = 36 (72-byte rows); the C entry
+        # point stages them with 2-byte loads
+        b, s, h, kv = 1, 130, 4, 2
+        q, k, v, do = (torch.from_numpy(_normal(i, (b, s, n, width))).to(cuda, torch.bfloat16)[..., :d]
+                       for i, n in enumerate((h, kv, kv, h)))
+        for causal in (True, False):
+            self._flash_both_ways(q, k, v, do, causal)
+
+    @pytest.mark.parametrize("b,s,h,kv,d,dtype", [(1, 700, 16, 8, 128, "bfloat16"),
+                                                  (1, 700, 32, 32, 64, "bfloat16"),
+                                                  (2, 97, 6, 3, 128, "float32")])
+    def test_flash_bwd_is_bit_equal_across_calls(self, cuda, b, s, h, kv, d, dtype):
+        # no float atomics: the grid trainer's quorum compares replicas'
+        # gradients, so equal inputs must give equal bits
+        q, k, v, do = (torch.from_numpy(_normal(i, shp)).to(cuda, TORCH_DT[dtype]) for i, shp in
+                       enumerate([(b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d)]))
+        out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
+        first = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        for _ in range(2):
+            again = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+            for x, y in zip(first, again):
+                assert torch.equal(x, y)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("shape", RMS_SHAPES + [(4096, 1024), (65536, 128), (5, 77), (3, 1024)])
@@ -421,7 +482,8 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize(
         "b,s,h,kv,d,causal,dtype",
         FLASH_BWD_CASES + [(2, 2048, 16, 8, 128, True, "bfloat16"),
-                           (2, 97, 6, 3, 128, True, "float32")],
+                           (2, 97, 6, 3, 128, True, "float32")]
+        + [c for c in FLASH_BF16_CASES if c not in FLASH_BWD_CASES],
     )
     def test_flash_bwd(self, cuda, b, s, h, kv, d, causal, dtype):
         shapes = [(b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d)]
