@@ -7,7 +7,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 
 1. Card and build: print the card's name and power limit, turn TF32 off,
    build the six kernel libraries from ``src/repro_torch/csrc`` (one nvcc
-   per source, all at once) into ``build/kernels/``.
+   per source, all at once) into ``build/kernels/``; print each flash and
+   rmsnorm kernel's registers and spills (``-Xptxas -v``), the others' in sum.
 2. Each kernel, forward and backward, against its plain PyTorch version on
    the card, at the serving and training paths' shapes in bf16 and f32, with
    the tolerance stated; per kernel its device time (torch.profiler; a
@@ -18,7 +19,14 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    calls; for a backward kernel, the device time of autograd's backward of
    the library call), its wall time per call between CUDA events (host
    launch cost included), and the least time the card could take (bytes at
-   3.35 TB/s or operations at the peak rate of their type). Flash
+   3.35 TB/s or operations at the peak rate of their type). rmsnorm is
+   held at the serving and training shapes and at every width the
+   reference takes: 768-4096 (the SSM models' norms), 3072, 5120 and 12288
+   (other archs' model widths), 20000 (above the registers: one block per
+   row) and, for the backward, 60000 (dscale sums beyond shared memory), a
+   ragged width (1000) and a base one element into its buffer (element-wide
+   accesses); every backward is run twice more and must give the same bits,
+   and the profiler splits three backward calls by kernel. Flash
    attention is held in bf16 (the tensor-core kernels) at the training
    shape, the serving prompts, zamba2's (1, 700, 32/32, 64), a ragged S with
    D = 48, GQA without the causal mask, q/k/v sliced from one fused
@@ -394,9 +402,9 @@ def main() -> int:
         raise AssertionError(f"built {sorted(nvcc_s)}, expected six libraries")
     log(f"[1] built {', '.join(nvcc_s)} in {time.perf_counter() - t0:.2f} s wall "
         f"(nvcc s: {json.dumps({k: round(v, 2) for k, v in nvcc_s.items()})})")
-    for lib, text in sorted(_build.logs.items()):  # -Xptxas -v: flash per kernel, others in sum
+    for lib, text in sorted(_build.logs.items()):  # -Xptxas -v: flash and rmsnorm per kernel
         usage = ptxas_usage(text)
-        if lib == "flash_attention":
+        if lib in ("flash_attention", "rmsnorm"):
             for u in usage:
                 log(f"[1] ptxas {u['kernel']}: registers {u.get('registers')}, spill bytes "
                     f"(stores, loads) {u.get('spill')}, static smem {u.get('smem_static')}")
@@ -459,11 +467,21 @@ def main() -> int:
             + (f" kernels {rec['kernels']}" if name.startswith("flash") else ""))
         return rec
 
-    def check_rms(rows, width, dtype, tol):
-        x, sc = randn(rows, width, dtype=dtype), randn(width, dtype=torch.float32)
+    def rms_input(rows, width, dtype, misaligned):
+        """(rows, width) normal values; with ``misaligned``, a contiguous view
+        one element into its buffer (not 16-byte aligned: the element-wide
+        accesses)."""
+        flat = randn(rows * width + 1, dtype=dtype)
+        return (flat[1:] if misaligned else flat[:-1]).view(rows, width)
+
+    def rms_desc(rows, width, misaligned):
+        return f"({rows}, {width}){' +1 elem' if misaligned else ''}"
+
+    def check_rms(rows, width, dtype, tol, misaligned=False):
+        x, sc = rms_input(rows, width, dtype, misaligned), randn(width, dtype=torch.float32)
         sc_lib = sc.to(dtype)
         es = esize(dtype)
-        return check("rmsnorm", f"({rows}, {width})", dtype,
+        return check("rmsnorm", rms_desc(rows, width, misaligned), dtype,
                      lambda x, s: rms_ops.rmsnorm(x, s, eps=cfg.norm_eps),
                      lambda x, s: rmsnorm_ref(x, s, cfg.norm_eps),
                      lambda x, s: F.rms_norm(x, (width,), sc_lib, cfg.norm_eps),
@@ -536,6 +554,20 @@ def main() -> int:
     check_rms(SLOTS, d, bf, 2e-2)  # decode
     check_rms(64, d, f32, 1e-5)
     check_rms(64 * H, hd, f32, 1e-5)
+    # every width the reference takes: mamba2's model width and gated norm,
+    # zamba2's model width and gated norm at a 700-token prefill; phi4-mini's,
+    # pixtral's and command-r-plus's model widths; a width above what the
+    # registers hold (one block per row, read twice); a ragged width and a
+    # misaligned base (element-wide accesses)
+    for width in (768, 1536, 2048, 4096):
+        check_rms(s_max, width, bf, 2e-2)
+    for width in (3072, 5120, 12288):
+        check_rms(300, width, bf, 2e-2)
+    check_rms(64, 20000, bf, 2e-2)
+    check_rms(64, 20000, f32, 1e-5)
+    check_rms(s_max, 1000, bf, 2e-2)
+    check_rms(s_max, d, bf, 2e-2, misaligned=True)
+    check_rms(64, d, f32, 1e-5, misaligned=True)
     results["swiglu"] = check_swiglu(n_tok, ff, bf, 2e-2)
     check_swiglu(s_max, ff, bf, 2e-2)
     check_swiglu(SLOTS, ff, bf, 2e-2)  # decode
@@ -568,17 +600,33 @@ def main() -> int:
         dy = dy.contiguous()  # cuDNN's attention backward refuses unaligned rows
         return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
 
-    def check_rms_bwd(rows, width, dtype, tol):
-        x, dy = randn(rows, width, dtype=dtype), randn(rows, width, dtype=dtype)
+    def check_rms_bwd(rows, width, dtype, tol, misaligned=False, split=False):
+        """The backward against its plain version and two more calls on the
+        same inputs, which must give the same bits; with ``split``, each
+        kernel's share of one call from the profiler."""
+        x, dy = (rms_input(rows, width, dtype, misaligned) for _ in range(2))
         sc = randn(width, dtype=torch.float32)
         es = esize(dtype)
         lib = autograd_bwd(lambda x, w: F.rms_norm(x, (width,), w, cfg.norm_eps),
                            (x, sc.to(dtype)), dy)
-        return check("rmsnorm_bwd", f"({rows}, {width})", dtype,
-                     lambda x, s, g: rms_ops.rmsnorm_bwd(x, s, g, cfg.norm_eps),
-                     lambda x, s, g: rmsnorm_bwd_ref(x, s, g, cfg.norm_eps), lib,
-                     (x, sc, dy), tol, 3 * rows * width * es + 8 * width, 10 * rows * width,
-                     PEAK_OPS["float32"])
+        desc = rms_desc(rows, width, misaligned)
+        rec = check("rmsnorm_bwd", desc, dtype,
+                    lambda x, s, g: rms_ops.rmsnorm_bwd(x, s, g, cfg.norm_eps),
+                    lambda x, s, g: rmsnorm_bwd_ref(x, s, g, cfg.norm_eps), lib,
+                    (x, sc, dy), tol, 3 * rows * width * es + 8 * width, 10 * rows * width,
+                    PEAK_OPS["float32"])
+        first = rms_ops.rmsnorm_bwd(x, sc, dy, cfg.norm_eps)
+        again = rms_ops.rmsnorm_bwd(x, sc, dy, cfg.norm_eps)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"rmsnorm backward {desc} {dtype}: two calls on the same inputs differ")
+        if split:
+            # every kernel the call ran (a fill kernel would show here too)
+            dev_us, _ = profiled(lambda: rms_ops.rmsnorm_bwd(x, sc, dy, cfg.norm_eps), 20)
+            split_ms = {(short_kernel_names({k: us}) or [k[:60]])[0]: round(us / 20 / 1e3, 5)
+                        for k, us in dev_us.items()}
+            log(f"[2] rmsnorm_bwd {desc} {rec['dtype']}: device ms per call by kernel "
+                f"{json.dumps(split_ms)} ({rms_ops.bwd_parts(rows, width)} blocks of partials)")
+        return rec
 
     def check_swiglu_bwd(rows, width, dtype, tol):
         g, u, dh = (randn(rows, width, dtype=dtype) for _ in range(3))
@@ -630,11 +678,25 @@ def main() -> int:
                                  f"on the same inputs differ")
         return rec
 
-    results["rmsnorm_bwd"] = check_rms_bwd(n_tok, d, bf, 2e-2)
-    check_rms_bwd(n_tok * H, hd, bf, 2e-2)  # qk-norm rows
+    results["rmsnorm_bwd"] = check_rms_bwd(n_tok, d, bf, 2e-2, split=True)
+    check_rms_bwd(n_tok * H, hd, bf, 2e-2, split=True)  # q-norm rows
+    check_rms_bwd(n_tok * KV, hd, bf, 2e-2)  # k-norm rows
     # f32 at 1e-4: dscale sums 4096 or 65536 rows in another order than torch
     check_rms_bwd(n_tok, d, f32, 1e-4)
     check_rms_bwd(n_tok * H, hd, f32, 1e-4)
+    # the widths of the forward's list: mamba2's gated norm, zamba2's model
+    # width and gated norm at one grad job's 4096 tokens; phi4-mini's,
+    # pixtral's and command-r-plus's; above the registers (dscale sums in
+    # shared memory) and above shared memory (in the block's partials row);
+    # ragged; misaligned
+    for width in (1536, 2048, 4096):
+        check_rms_bwd(n_tok, width, bf, 2e-2)
+    for width in (3072, 5120, 12288):
+        check_rms_bwd(300, width, bf, 2e-2, split=width == 12288)
+    check_rms_bwd(64, 20000, bf, 2e-2)
+    check_rms_bwd(4, 60000, f32, 1e-4)
+    check_rms_bwd(s_max, 1000, bf, 2e-2)
+    check_rms_bwd(n_tok, d, bf, 2e-2, misaligned=True)
     results["swiglu_bwd"] = check_swiglu_bwd(n_tok, ff, bf, 2e-2)
     check_swiglu_bwd(n_tok, ff, f32, 1e-5)
     results["flash_attention_bwd"] = check_flash_bwd(TRAIN_BATCH, TRAIN_SEQ, H, KV, hd, bf, 2e-2)

@@ -166,9 +166,18 @@ def flash_attention(
     v: torch.Tensor,  # (B, S, KV, D)
     *,
     causal: bool = True,
+    block_q: int = 128,
+    block_k: int = 128,
+    interpret: bool = False,
 ) -> torch.Tensor:
     """Attention output ``(B, S, H, D)`` in q's dtype; differentiable in q,
-    k and v."""
+    k and v.
+
+    ``block_q``, ``block_k`` and ``interpret`` are the reference's keywords,
+    accepted and ignored: the kernels' tiles are fixed by D and the dtype
+    (the result does not depend on the tiling beyond rounding), and
+    ``interpret`` names the TPU kernel's interpreter, so a CUDA tensor still
+    runs the CUDA kernels."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal)
     return flash_attention_fwd(q, k, v, causal=causal)[0]

@@ -112,9 +112,14 @@ def dequantize_rows(
     return out
 
 
-def int8_quantize(x: torch.Tensor, *, block_rows: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+def int8_quantize(
+    x: torch.Tensor, *, block_rows: int = 256, interpret: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(q int8 (rows, 256), scales f32 (nb, 1))`` of ``x`` (any shape,
-    float32 or bfloat16 on the card) after the reference's padding."""
+    float32 or bfloat16 on the card) after the reference's padding.
+    ``interpret``, the reference's keyword, is accepted and ignored: it
+    names the TPU kernel's interpreter, so a CUDA tensor still runs the
+    CUDA kernel (here and in the two functions below)."""
     return quantize_rows(*to_rows(x, block_rows))
 
 
@@ -126,6 +131,7 @@ def int8_dequantize(
     shape: Tuple[int, ...],
     block_rows: int = 256,
     out_dtype: torch.dtype = torch.float32,
+    interpret: bool = False,
 ) -> torch.Tensor:
     """The ``n`` leading values of ``q * scale``, reshaped to ``shape``."""
     br = min(block_rows, q.shape[0])
@@ -133,7 +139,7 @@ def int8_dequantize(
     return x.reshape(-1)[:n].reshape(shape)
 
 
-def quantize_dequantize(x: torch.Tensor) -> torch.Tensor:
+def quantize_dequantize(x: torch.Tensor, *, interpret: bool = True) -> torch.Tensor:
     """Round-trip helper (what the compression path applies per leaf)."""
     q, s = int8_quantize(x)
     return int8_dequantize(q, s, n=x.numel(), shape=tuple(x.shape), out_dtype=x.dtype)

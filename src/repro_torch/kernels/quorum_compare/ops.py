@@ -34,13 +34,20 @@ launches = 0
 
 
 def quorum_compare(
-    a: torch.Tensor, b: torch.Tensor, *, rtol: float = 1e-5, atol: float = 1e-8
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    rtol: float = 1e-5,
+    atol: float = 1e-8,
+    interpret: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(n_bad int64, sum_sq f32)`` over flattened inputs of equal size.
 
     An element is bad when ``|a - b| > atol + rtol*|b|`` in f32; a NaN is
     never bad (as on the TPU), and any non-finite element makes ``sum_sq``
-    non-finite."""
+    non-finite. ``interpret``, the reference's keyword, is accepted and
+    ignored: it names the TPU kernel's interpreter, so a CUDA tensor still
+    runs the CUDA kernel."""
     global launches
     if a.numel() != b.numel():
         raise ValueError(f"quorum_compare sizes differ: {a.numel()} vs {b.numel()}")
@@ -74,10 +81,12 @@ def tree_quorum_agree(
     rtol: float = 1e-4,
     atol: float = 1e-6,
     max_bad_fraction: float = 0.0,
+    interpret: bool = True,
 ) -> bool:
     """Tree-level fuzzy agreement: the fraction of bad elements over every
     leaf is at most ``max_bad_fraction``. Leaves are taken in sorted-key
-    order; trees with different leaf counts or shapes disagree."""
+    order; trees with different leaf counts or shapes disagree.
+    ``interpret`` is accepted and ignored, as in ``quorum_compare``."""
     la, lb = tree_leaves(tree_a), tree_leaves(tree_b)
     if len(la) != len(lb):
         return False

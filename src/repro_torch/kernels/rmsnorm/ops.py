@@ -5,7 +5,10 @@ CPU tensors.
 ``rmsnorm`` goes through a ``torch.autograd.Function`` when a gradient is
 wanted (its backward is the backward kernel), and calls the forward alone
 otherwise. ``launches`` and ``launches_bwd`` count the forward and backward
-kernels' launches; the CPU path leaves them alone.
+kernels' launches; the CPU path leaves them alone. Both kernels take any
+width d > 0: the C entry points spread a row over threads chosen from d and
+the row count. The backward's grid, ``bwd_parts(rows, d)``, depends on the
+shape alone, never on the card, so equal inputs give equal bits anywhere.
 """
 from __future__ import annotations
 
@@ -17,10 +20,9 @@ import torch
 from .. import _build
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
-MAX_D = 4096
-MAX_D_BWD = 1024  # the backward keeps each lane's dscale sums in registers
-BWD_WARPS = 8  # rows per block of the backward kernel (csrc kBwdWarps)
-BWD_MAX_BLOCKS = 2 * 132  # two blocks for each of the H100's 132 SMs
+H100_SMS = 132
+BWD_MAX_PARTS = 4 * H100_SMS  # backward blocks: at most four per SM
+BWD_PARTIAL_FLOATS = 1 << 19  # wide rows get fewer blocks: about 2 MB of f32 partials
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, scale, out
@@ -37,15 +39,24 @@ launches = 0
 launches_bwd = 0
 
 
-def _check(x: torch.Tensor, scale: torch.Tensor, max_d: int) -> int:
+def _check(x: torch.Tensor, scale: torch.Tensor) -> int:
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm runs on cuda or cpu tensors, not {x.device}")
     d = x.shape[-1]
     if x.dtype not in _DTYPES:
         raise TypeError(f"rmsnorm kernel takes float32 or bfloat16, not {x.dtype}")
-    if not 0 < d <= max_d or tuple(scale.shape) != (d,):
-        raise ValueError(f"rmsnorm kernel needs 0 < d <= {max_d} and scale of shape ({d},)")
+    if d == 0 or tuple(scale.shape) != (d,):
+        raise ValueError(f"rmsnorm kernel needs d > 0 and scale of shape ({d},)")
     return d
+
+
+def bwd_parts(rows: int, d: int) -> int:
+    """Blocks of the backward kernel for ``rows`` rows of width ``d``; each
+    writes one row of f32 dscale partials. One per row, up to four per SM of
+    an H100, and fewer for wide rows, down to one per SM. A function of the
+    shape alone, so the partials, and the order in which they are summed,
+    are the same on every card."""
+    return max(1, min(rows, BWD_MAX_PARTS, max(H100_SMS, BWD_PARTIAL_FLOATS // d)))
 
 
 def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -53,7 +64,7 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torc
     global launches
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
-    d = _check(x, scale, MAX_D)
+    d = _check(x, scale)
     xf = x.reshape(-1, d).contiguous()
     sc = scale.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(xf)
@@ -74,7 +85,7 @@ def rmsnorm_bwd(
     global launches_bwd
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(x, scale, dy, eps)
-    d = _check(x, scale, MAX_D_BWD)
+    d = _check(x, scale)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"rmsnorm backward: dy {tuple(dy.shape)} {dy.dtype} does not match x")
     xf = x.reshape(-1, d).contiguous()
@@ -82,16 +93,17 @@ def rmsnorm_bwd(
     sc = scale.to(device=x.device, dtype=torch.float32).contiguous()
     rows = xf.shape[0]
     dx = torch.empty_like(xf)
-    dscale = torch.zeros(d, dtype=torch.float32, device=x.device)
-    if rows:
-        parts = min(-(-rows // BWD_WARPS), BWD_MAX_BLOCKS)
-        partial = torch.empty((parts, d), dtype=torch.float32, device=x.device)
-        fn = _build.entry("rmsnorm", "repro_rmsnorm_bwd", _BWD_ARGTYPES)
-        code = fn(xf.data_ptr(), sc.data_ptr(), gf.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-                  dscale.data_ptr(), rows, d, eps, parts, _DTYPES[x.dtype],
-                  _build.stream_ptr(x.device))
-        _build.check("rmsnorm", code)
-        launches_bwd += 1
+    if not rows:
+        return dx.view(x.shape), torch.zeros(d, dtype=torch.float32, device=x.device)
+    parts = bwd_parts(rows, d)
+    partial = torch.empty((parts, d), dtype=torch.float32, device=x.device)
+    dscale = torch.empty(d, dtype=torch.float32, device=x.device)  # every column is written
+    fn = _build.entry("rmsnorm", "repro_rmsnorm_bwd", _BWD_ARGTYPES)
+    code = fn(xf.data_ptr(), sc.data_ptr(), gf.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+              dscale.data_ptr(), rows, d, eps, parts, _DTYPES[x.dtype],
+              _build.stream_ptr(x.device))
+    _build.check("rmsnorm", code)
+    launches_bwd += 1
     return dx.view(x.shape), dscale
 
 
@@ -109,10 +121,22 @@ class _RMSNorm(torch.autograd.Function):
         return dx, dscale, None
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    *,
+    eps: float = 1e-6,
+    block_rows: int = 256,
+    interpret: bool = False,
+) -> torch.Tensor:
     """``x * rsqrt(mean(x**2) + eps) * scale`` with f32 statistics, in x's
     dtype; differentiable in x and scale (scale's gradient is f32, cast back
-    to scale's dtype by autograd)."""
+    to scale's dtype by autograd).
+
+    ``block_rows`` and ``interpret`` are the reference's keywords, accepted
+    and ignored: the kernel picks its rows per block from d and the row
+    count, and ``interpret`` names the TPU kernel's interpreter, so a CUDA
+    tensor still runs the CUDA kernel."""
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return _RMSNorm.apply(x, scale.float(), eps)
     return rmsnorm_fwd(x, scale, eps)

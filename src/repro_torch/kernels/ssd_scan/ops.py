@@ -66,10 +66,13 @@ def ssd_scan(
     Cm: torch.Tensor,  # (B, S, G, N)
     *,
     block_q: int = 128,
+    interpret: bool = False,
     initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(y (B, S, H, P) in x's dtype, final_state (B, H, P, N) f32)``. dt,
-    A and the state are taken in f32."""
+    A and the state are taken in f32. ``interpret``, the reference's
+    keyword, is accepted and ignored: it names the TPU kernel's interpreter,
+    so a CUDA tensor still runs the CUDA kernel."""
     global launches
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, Bm, Cm, block_q=block_q, initial_state=initial_state)

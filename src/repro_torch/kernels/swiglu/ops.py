@@ -87,9 +87,20 @@ class _SwiGLU(torch.autograd.Function):
         return swiglu_bwd(gate, up, dh)
 
 
-def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+def swiglu(
+    gate: torch.Tensor,
+    up: torch.Tensor,
+    *,
+    block_rows: int = 256,
+    interpret: bool = False,
+) -> torch.Tensor:
     """``silu(gate) * up`` computed in f32, returned in the gate's dtype;
-    differentiable in both inputs."""
+    differentiable in both inputs.
+
+    ``block_rows`` and ``interpret`` are the reference's keywords, accepted
+    and ignored: the kernel is elementwise over the flattened inputs, and
+    ``interpret`` names the TPU kernel's interpreter, so a CUDA tensor still
+    runs the CUDA kernel."""
     if torch.is_grad_enabled() and (gate.requires_grad or up.requires_grad):
         return _SwiGLU.apply(gate, up)
     return swiglu_fwd(gate, up)

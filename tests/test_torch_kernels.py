@@ -47,7 +47,9 @@ FLASH_CASES = [
     (1, 256, 4, 2, 64, True, "bfloat16"),
     (1, 130, 2, 2, 32, True, "float32"),  # ragged: S not a multiple of the tile
 ]
-RMS_SHAPES = [(4, 256), (3, 77, 256), (2, 5, 8, 128)]
+# the last three: mamba2's gated norm (1536), zamba2's (4096), pixtral's and
+# llama4-scout's model width (5120)
+RMS_SHAPES = [(4, 256), (3, 77, 256), (2, 5, 8, 128), (3, 1536), (2, 4096), (2, 5120)]
 SWIGLU_SHAPES = [(16, 128), (5, 100, 128), (1, 7, 384)]
 # the backward sweep adds GQA with D=48 (ragged lanes) to FLASH_CASES
 FLASH_BWD_CASES = FLASH_CASES + [(1, 130, 4, 2, 48, False, "float32"),
