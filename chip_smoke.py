@@ -7,8 +7,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 
 1. Card and build: print the card's name and power limit, turn TF32 off,
    build the six kernel libraries from ``src/repro_torch/csrc`` (one nvcc
-   per source, all at once) into ``build/kernels/``; print each flash and
-   rmsnorm kernel's registers and spills (``-Xptxas -v``), the others' in sum.
+   per source, all at once) into ``build/kernels/``; print each flash,
+   rmsnorm and ssd_scan kernel's registers and spills (``-Xptxas -v``; the
+   kD = 256 flash kernels among them), the others' in sum.
 2. Each kernel, forward and backward, against its plain PyTorch version on
    the card, at the serving and training paths' shapes in bf16 and f32, with
    the tolerance stated; per kernel its device time (torch.profiler; a
@@ -32,7 +33,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    D = 48, GQA without the causal mask, q/k/v sliced from one fused
    projection and rows that are not 16-byte aligned (the 2-byte staging),
    forward and backward; in f32 (the scalar kernels) at the training shape
-   and two small ones. Each flash row names the kernels the profiler saw
+   and two small ones; past D = 128 (the kD = 256 kernels) at D = 256 and a
+   D = 192 padded to 256, in bf16 and f32, forward and backward. Each flash row names the kernels the profiler saw
    (mma for bf16, scalar for f32), and every backward is run twice more on
    the same inputs and must give the same bits. quorum_compare
    also runs through the grid trainer's comparator on NaN and inf leaves.
@@ -41,9 +43,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    gradient's shape and at a ragged (28, 128) leaf; no single PyTorch call
    computes the block-scaled int8 code, so they have no library time.
    ssd_scan is held at the mamba2 and zamba2 prefill shapes in bf16 and
-   f32, with a ragged S and P tile, an initial state and two groups, and
-   against the sequential oracle at the reference test's size to 3e-4; no
-   single PyTorch call computes the SSD scan either.
+   f32, with a ragged S and P tile, an initial state, two groups and a
+   2048-token prompt at P = 128, N = 256 in 8 groups, and against the
+   sequential oracle at the reference test's size to 3e-4; at the two
+   prefill shapes the profiler splits a call's time between its three
+   kernels. No single PyTorch call computes the SSD scan either.
 3. Serve qwen3-0.6b at full width (28 layers, random weights from a seeded
    generator, bf16 compute) through ``BatchServer``: 8 ragged requests of
    64-700 prompt tokens, 32 new tokens each, EDF deadlines. Every kernel
@@ -82,14 +86,15 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    with the traffic of phase 3; counters zeroed before and read after:
    ssd_scan at least 24 per request, rmsnorm (2 x 24 + 1) per forward,
    flash_attention and swiglu none. Then one prefill and one decode step
-   under ``torch.profiler``.
+   under ``torch.profiler``; the prefill's must show the three ssd_scan
+   kernels, and no profile the single-block kernel they replaced.
 10. mamba2-130m's f32 prefill logits on the card against the CPU (phase
     4's check, all 24 layers).
 11. Serve zamba2-1.2b at full width (38 Mamba-2 layers in 6 groups of 6 and
     a tail of 2, d=2048, one weight-tied attention+MLP block after each
     group) with the same traffic: ssd_scan at least 38 per request,
     flash_attention 6 per request, swiglu 6 and rmsnorm (2 x 38 + 2 x 6 + 1)
-    per forward; then the same profile.
+    per forward; then the same profiles and checks.
 12. zamba2-1.2b's f32 prefill logits on the card against the CPU at 8
     layers (one group and the tail).
 
@@ -226,6 +231,10 @@ def device_ms(fn, iters: int = 20, names: list | None = None) -> float:
 # the f32 flash kernels; bf16 runs the tensor-core (mma) kernels
 SCALAR_FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 MMA_FLASH = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_mma_kernel")
+# one ssd_scan call: chunk states, the pass over the chunks, the outputs; and
+# the single-block kernel they replaced, which no profile may show
+SSD_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_output_kernel")
+OLD_SSD = "ssd_scan_kernel"
 
 
 def short_kernel_names(dev_us) -> list:
@@ -312,6 +321,22 @@ def check_flash_profile(dev_us, want, label: str) -> None:
     if missing or scalar:
         raise AssertionError(f"{label}: flash kernels {names}: missing {missing}, scalar {scalar}")
     log(f"{label}: flash kernels in the profile {[n for n in names if n.startswith('flash')]}")
+
+
+def check_ssd_profile(dev_us, want: bool, label: str) -> None:
+    """In a profile: the three ssd_scan kernels all ran (where ``want``) and
+    the single-block kernel they replaced did not. A profile with no
+    records is not checked, which the log says."""
+    if not dev_us:
+        log(f"{label}: ssd_scan kernel names not checked (the profiler recorded nothing)")
+        return
+    names = [n.split("<")[0] for n in short_kernel_names(dev_us)]
+    missing = [k for k in SSD_KERNELS if want and k not in names]
+    if missing or OLD_SSD in names:
+        raise AssertionError(f"{label}: kernels {names}: ssd_scan kernels missing {missing}"
+                             f"{f', and {OLD_SSD} ran' if OLD_SSD in names else ''}")
+    if want:
+        log(f"{label}: ssd_scan kernels in the profile {[n for n in names if n.startswith('ssd')]}")
 
 
 def profile_breakdown(fn, label: str, top: int = 10):
@@ -402,9 +427,9 @@ def main() -> int:
         raise AssertionError(f"built {sorted(nvcc_s)}, expected six libraries")
     log(f"[1] built {', '.join(nvcc_s)} in {time.perf_counter() - t0:.2f} s wall "
         f"(nvcc s: {json.dumps({k: round(v, 2) for k, v in nvcc_s.items()})})")
-    for lib, text in sorted(_build.logs.items()):  # -Xptxas -v: flash and rmsnorm per kernel
+    for lib, text in sorted(_build.logs.items()):  # -Xptxas -v: flash, rmsnorm, ssd per kernel
         usage = ptxas_usage(text)
-        if lib in ("flash_attention", "rmsnorm"):
+        if lib in ("flash_attention", "rmsnorm", "ssd_scan"):
             for u in usage:
                 log(f"[1] ptxas {u['kernel']}: registers {u.get('registers')}, spill bytes "
                     f"(stores, loads) {u.get('spill')}, static smem {u.get('smem_static')}")
@@ -515,7 +540,7 @@ def main() -> int:
         if not seen:
             log(f"[2] {label}: kernel names not checked (the profiler recorded nothing)")
             return
-        want = [n + ("<float>" if dtype == f32 else "") for n in names]
+        want = [n + ("<float," if dtype == f32 else "<") for n in names]
         ok = all(any(k.startswith(w) for k in seen) for w in want) and len(seen) == len(want)
         if dtype == bf and ok:
             ok = all(k.endswith("false>" if layout == "wide" else "true>") for k in seen)
@@ -590,6 +615,13 @@ def main() -> int:
     # the scalar f32 kernel at the training shape: its own row
     results["flash_attention_f32"] = check_flash(TRAIN_SEQ, H, KV, hd, f32, 2e-5, b=TRAIN_BATCH,
                                                  with_lse=True)
+    # past D = 128: the kD = 256 kernels at D = 256 and at D = 192 (padded
+    # to 256), bf16 and f32
+    check_flash(TRAIN_SEQ, 8, 4, 256, bf, 2e-2)
+    check_flash(300, 8, 4, 256, bf, 2e-2)
+    check_flash(130, 4, 2, 192, bf, 2e-2, causal=False)
+    check_flash(512, 8, 4, 256, f32, 2e-5)
+    check_flash(130, 4, 2, 192, f32, 2e-5)
 
     # backward kernels at the training path's shapes (2 x 2048 tokens)
     def autograd_bwd(fn, inputs, dy):
@@ -712,6 +744,12 @@ def main() -> int:
     check_flash_bwd(1, 256, 8, 2, 128, bf, 2e-2, causal=False)
     check_flash_bwd(1, 150, 4, 2, 48, bf, 2e-2, layout="fused")
     check_flash_bwd(1, 130, 4, 2, 40, bf, 2e-2, layout="wide")
+    # past D = 128: the kD = 256 kernels (dK/dV in two column halves)
+    check_flash_bwd(1, TRAIN_SEQ, 8, 4, 256, bf, 2e-2)
+    check_flash_bwd(1, 300, 8, 4, 256, bf, 2e-2)
+    check_flash_bwd(1, 130, 4, 2, 192, bf, 2e-2, causal=False)
+    check_flash_bwd(1, 512, 8, 4, 256, f32, 1e-4)
+    check_flash_bwd(1, 130, 4, 2, 192, f32, 2e-5)
 
     # quorum_compare on a pair of embedding-gradient-sized leaves
     rows_e = cfg.padded_vocab
@@ -793,7 +831,7 @@ def main() -> int:
     def uniform(*shape, lo=0.0, hi=1.0):
         return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
 
-    def check_ssd(b, s, h, p, g, n, dtype, tol, init=False):
+    def check_ssd(b, s, h, p, g, n, dtype, tol, init=False, split=False):
         x = randn(b, s, h, p, dtype=dtype)
         dt = torch.exp(uniform(b, s, h, lo=math.log(1e-3), hi=math.log(0.1)))
         A = -uniform(h, lo=1.0, hi=16.0)
@@ -802,20 +840,33 @@ def main() -> int:
         es = esize(dtype)
         nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * es + 4 * (b * s * h + h) \
             + 4 * b * h * p * n * (2 if init else 1)
-        return check("ssd_scan", f"({b}, {s}, {h}, {p}) g{g} n{n}{' +state' if init else ''}", dtype,
-                     lambda x, dt, A, bm, cm, st0: ssd_ops.ssd_scan(x, dt, A, bm, cm, initial_state=st0),
-                     lambda x, dt, A, bm, cm, st0: ssd_scan_ref(x, dt, A, bm, cm, block_q=256,
-                                                               initial_state=st0),
-                     None, (x, dt, A, bm, cm, st0), tol, nbytes, 4 * b * s * h * p * n,
-                     PEAK_OPS[str(dtype).replace("torch.", "")])
+        desc = f"({b}, {s}, {h}, {p}) g{g} n{n}{' +state' if init else ''}"
+        rec = check("ssd_scan", desc, dtype,
+                    lambda x, dt, A, bm, cm, st0: ssd_ops.ssd_scan(x, dt, A, bm, cm, initial_state=st0),
+                    lambda x, dt, A, bm, cm, st0: ssd_scan_ref(x, dt, A, bm, cm, block_q=256,
+                                                              initial_state=st0),
+                    None, (x, dt, A, bm, cm, st0), tol, nbytes, 4 * b * s * h * p * n,
+                    PEAK_OPS[str(dtype).replace("torch.", "")])
+        if split:
+            # each of the call's three kernels, device ms per call
+            dev_us, _ = profiled(lambda: ssd_ops.ssd_scan(x, dt, A, bm, cm, initial_state=st0), 20)
+            split_ms = {(short_kernel_names({k: us}) or [k[:60]])[0]: round(us / 20 / 1e3, 5)
+                        for k, us in dev_us.items()}
+            check_ssd_profile(dev_us, True, f"[2] ssd_scan {desc}")
+            log(f"[2] ssd_scan {desc} {rec['dtype']}: device ms per call by kernel "
+                f"{json.dumps(split_ms)}")
+        return rec
 
-    results["ssd_scan"] = check_ssd(1, s_max, 24, 64, 1, 128, bf, 2e-2)  # mamba2-130m
-    check_ssd(1, s_max, 24, 64, 1, 128, f32, 1e-4)
-    check_ssd(1, s_max, 64, 64, 1, 64, bf, 2e-2)  # zamba2-1.2b
-    check_ssd(1, s_max, 64, 64, 1, 64, f32, 1e-4)
+    results["ssd_scan"] = check_ssd(1, s_max, 24, 64, 1, 128, bf, 2e-2, split=True)  # mamba2-130m
+    check_ssd(1, s_max, 24, 64, 1, 128, f32, 1e-4, split=True)
+    check_ssd(1, s_max, 64, 64, 1, 64, bf, 2e-2, split=True)  # zamba2-1.2b
+    check_ssd(1, s_max, 64, 64, 1, 64, f32, 1e-4, split=True)
     check_ssd(1, s_max, 24, 64, 1, 128, f32, 1e-4, init=True)
-    check_ssd(1, 333, 24, 40, 1, 128, f32, 1e-4)  # S and P past the 32 x 16 tile
+    check_ssd(1, s_max, 24, 64, 1, 128, bf, 2e-2, init=True)
+    check_ssd(1, 333, 24, 40, 1, 128, f32, 1e-4)  # a ragged last chunk and P tile
     check_ssd(2, 200, 8, 32, 2, 32, f32, 1e-4)  # groups
+    check_ssd(1, TRAIN_SEQ, 16, 128, 8, 256, bf, 2e-2, init=True)  # P = 128, N = 256, 8 groups
+    check_ssd(1, TRAIN_SEQ, 16, 128, 8, 256, f32, 1e-4)
 
     def check_ssd_oracle(b, s, h, p, g, n):
         """Against the sequential recurrence, with the reference test's
@@ -907,6 +958,9 @@ def main() -> int:
             # bf16 attention runs the tensor-core flash kernel; no scalar one
             check_flash_profile(dev_us, MMA_FLASH[:1] if label.startswith("prefill") and
                                 implied(1)["flash_attention"] else (), f"[{tag}] {label}")
+            # an SSM prefill runs the three ssd_scan kernels; none the old one
+            check_ssd_profile(dev_us, label.startswith("prefill") and implied(1)["ssd_scan"] > 0,
+                              f"[{tag}] {label}")
         del server, one, batch_cache
         torch.cuda.empty_cache()
         return launches, params

@@ -42,14 +42,19 @@
 //   columns at or past D arrive as zeros (cp.async's source size). Shared
 //   rows are padded by 16 bytes, so the 8 rows that one ldmatrix phase reads
 //   fall in 8 distinct bank groups.
-// - A template on the padded head width kD in {64, 128}: a smaller D is
-//   zero-padded in shared memory; its padding columns multiply as zeros
-//   (the loops stay free of branches) and are never stored. Where a 16-byte copy cannot be used (D not a multiple of 8, or a
-//   base or stride not 16-byte aligned), the same kernels stage with 2-byte
-//   loads (kVec = false), as the C entry point picks from the arguments.
+// - A template on the padded head width kD in {64, 128, 256}: a smaller D
+//   is zero-padded in shared memory (D = 48 to 64, D = 192 to 256); its
+//   padding columns multiply as zeros (the loops stay free of branches) and
+//   are never stored. Where a 16-byte copy cannot be used (D not a multiple
+//   of 8, or a base or stride not 16-byte aligned), the same kernels stage
+//   with 2-byte loads (kVec = false), as the C entry point picks from the
+//   arguments.
 // - Forward: Q is staged through K's second buffer (free until the first
 //   prefetch) and stays in registers as A fragments, so a block takes 4
 //   tiles of shared memory (69.6 KB at kD = 128) and 3 blocks fit an SM.
+//   At kD = 256, O's accumulators alone are 128 f32 registers a thread: Q
+//   keeps a fifth tile (169 KB in all) and is read from it at each k-step,
+//   and one block runs an SM.
 //   S = Q K^T; the online softmax runs on the accumulators (row max and sum
 //   across each quad by shuffles, exp2 with log2(e) folded into one FMA);
 //   O += P V. Only the diagonal tile and a tile that reaches past S mask,
@@ -65,66 +70,77 @@
 //   queries at a time, so that dK and dV (128 f32 registers a thread at
 //   kD = 128) leave room for the rest. Summing the group inside the block
 //   gives GQA's dK and dV without atomics: no kernel here uses a float
-//   atomic, so equal inputs give bit-equal gradients.
+//   atomic, so equal inputs give bit-equal gradients. At kD = 256 dK plus
+//   dV would be 256 registers a thread, so a grid axis splits their columns
+//   in halves: each half recomputes S^T and dP^T over all of D and keeps
+//   dK and dV for its 128 columns (dkdv_cols).
 //
 // The f32 scalar kernels: one block of 256 threads per (64-row tile, head,
 // batch); tiles staged in shared memory in f32 with D + 1 columns, so the
 // column walks hit distinct banks; each thread owns 4 rows and up to 8
-// output columns; scalar f32 FMAs. The same loops, masks and clamps as above.
+// output columns (16 for D past 128: the width template kDW = 256); scalar
+// f32 FMAs. The same loops, masks and clamps as above. At kDW = 256 the
+// dK/dV kernel takes 32 keys a block (206 KB of tiles at D = 256).
 //
 // Every kernel reads and writes q, k, v, o, dO, dq, dk and dv through their
 // (batch, seq, head) strides with unit stride along D: the caller needs no
-// transpose and no padding copy. D may be anything up to 128. Query head h
+// transpose and no padding copy. D may be anything up to 256. Query head h
 // reads KV head h / (H / KV). lse and Delta are f32 (B, H, S), contiguous.
 #include <initializer_list>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;  // == kBlockQ: the causal loop and stage_tile rely on it
+constexpr int kBlockK = 64;  // == kBlockQ: the forward's and dQ's causal loops rely on it
 constexpr int kThreads = 256;  // 16 x 16
-constexpr int kMaxD = 128;
-constexpr int kDPer = kMaxD / 16;  // output columns per thread
+constexpr int kMaxD = 256;     // the widest D the kernels take
 constexpr float kNegInf = -1e30f;
+
+// Keys per block of the scalar dK/dV kernel: 64, or 32 at kDW = 256, where
+// four 64-row f32 tiles of 257 columns (263 KB) would not fit 227 KB.
+__host__ __device__ constexpr int dkdv_rows(int dw) { return dw > 128 ? 32 : 64; }
 
 struct Strides {
   int64_t b, s, h;
 };
 
-// Stage rows [s0, s0 + 64) of one head (row stride `rs`) into `tile` as f32
-// with row stride `ld`; rows at or past S become zeros. Thread t handles
-// column t % 128 of rows t / 128 + 2 i, so a warp reads 32 neighbouring
+// Stage rows [s0, s0 + kRowsT) of one head (row stride `rs`) into `tile` as
+// f32 with row stride `ld`; rows at or past S become zeros. Thread t handles
+// column t % kDW of rows t / kDW + kStep i, so a warp reads 32 neighbouring
 // elements of one row. Loads go out in batches of kBatch before their
 // stores, so a thread waits for kRows / kBatch round trips, not kRows.
-template <typename T>
+template <typename T, int kDW, int kRowsT>
 __device__ __forceinline__ void stage_tile(float* __restrict__ tile, int ld,
                                            const T* __restrict__ base, int64_t rs, int s0,
                                            int S, int D, int tid) {
-  constexpr int kRows = kBlockK * kMaxD / kThreads;  // 32 rows per thread
+  constexpr int kStep = kThreads / kDW;  // rows one pass covers: 2 at kDW = 128, 1 at 256
+  constexpr int kRows = kRowsT / kStep;  // rows per thread
   constexpr int kBatch = 8;
-  const int c = tid % kMaxD;
-  const int r0 = tid / kMaxD;
+  const int c = tid % kDW;
+  const int r0 = tid / kDW;
   if (c >= D) return;
 #pragma unroll
   for (int b = 0; b < kRows; b += kBatch) {
     float vals[kBatch];
 #pragma unroll
     for (int i = 0; i < kBatch; ++i) {
-      const int s = s0 + r0 + 2 * (b + i);
+      const int s = s0 + r0 + kStep * (b + i);
       vals[i] = s < S ? repro::to_f32(base[s * rs + c]) : 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < kBatch; ++i) tile[(r0 + 2 * (b + i)) * ld + c] = vals[i];
+    for (int i = 0; i < kBatch; ++i) tile[(r0 + kStep * (b + i)) * ld + c] = vals[i];
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+template <typename T, int kDW>
+__global__ void __launch_bounds__(kThreads, kDW > 128 ? 1 : 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int S, int H, int KV, int D,
                  Strides qs, Strides ks, Strides vs, Strides os, float sm_scale, int causal) {
+  constexpr int kDPer = kDW / 16;  // output columns per thread
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* q_tile = smem;                       // kBlockQ x ld
@@ -141,7 +157,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* kb = k + b * ks.b + kvh * ks.h;
   const T* vb = v + b * vs.b + kvh * vs.h;
 
-  stage_tile(q_tile, ld, qb, qs.s, q0, S, D, tid);
+  stage_tile<T, kDW, kBlockQ>(q_tile, ld, qb, qs.s, q0, S, D, tid);
 
   float m[4], l[4], acc[4][kDPer];
 #pragma unroll
@@ -158,7 +174,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // q_tile written / last V tile read by everyone
-    stage_tile(kv_tile, ld, kb, ks.s, k0, S, D, tid);
+    stage_tile<T, kDW, kBlockQ>(kv_tile, ld, kb, ks.s, k0, S, D, tid);
     __syncthreads();
 
     float sc[4][4];
@@ -212,7 +228,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
     __syncthreads();  // scores done with K; p_tile complete
 
-    stage_tile(kv_tile, ld, vb, vs.s, k0, S, D, tid);
+    stage_tile<T, kDW, kBlockQ>(kv_tile, ld, vb, vs.s, k0, S, D, tid);
     __syncthreads();
 
     for (int kk = 0; kk < kBlockK; ++kk) {
@@ -249,13 +265,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 // dQ and Delta; see the header. Shared memory: Q and dO tiles, one tile that
 // holds V and then K, and the dS tile, all f32.
-template <typename T>
+template <typename T, int kDW>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ o, const T* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ delta, T* __restrict__ dq,
                     int S, int H, int KV, int D, Strides qs, Strides ks, Strides vs, Strides os,
                     Strides dos, Strides dqs, float sm_scale, int causal) {
+  constexpr int kDPer = kDW / 16;
   extern __shared__ float smem[];
   const int ld = D + 1;
   constexpr int ldp = kBlockK + 1;
@@ -273,8 +290,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const T* ob = o + b * os.b + h * os.h;
   const T* kb = k + b * ks.b + kvh * ks.h;
   const T* vb = v + b * vs.b + kvh * vs.h;
-  stage_tile(q_tile, ld, q + b * qs.b + h * qs.h, qs.s, q0, S, D, tid);
-  stage_tile(do_tile, ld, dout + b * dos.b + h * dos.h, dos.s, q0, S, D, tid);
+  stage_tile<T, kDW, kBlockQ>(q_tile, ld, q + b * qs.b + h * qs.h, qs.s, q0, S, D, tid);
+  stage_tile<T, kDW, kBlockQ>(do_tile, ld, dout + b * dos.b + h * dos.h, dos.s, q0, S, D, tid);
   __syncthreads();
 
   float dl[4], ls[4];
@@ -307,7 +324,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // the last tile's K and dS are read by everyone
-    stage_tile(kv_tile, ld, vb, vs.s, k0, S, D, tid);
+    stage_tile<T, kDW, kBlockQ>(kv_tile, ld, vb, vs.s, k0, S, D, tid);
     __syncthreads();
     float dp[4][4];
 #pragma unroll
@@ -326,7 +343,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
     }
     __syncthreads();  // V read by everyone
-    stage_tile(kv_tile, ld, kb, ks.s, k0, S, D, tid);
+    stage_tile<T, kDW, kBlockQ>(kv_tile, ld, kb, ks.s, k0, S, D, tid);
     __syncthreads();
     float sc[4][4];
 #pragma unroll
@@ -387,42 +404,46 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 // dK and dV of one key tile, summed over the KV group's query heads; see the
-// header. Shared memory: K, V, Q and dO tiles, one tile that holds P^T and
-// then dS^T, and the query tile's lse and Delta, all f32.
-template <typename T>
+// header. Shared memory: K and V tiles of kBK keys, Q and dO tiles, one
+// tile that holds P^T and then dS^T, and the query tile's lse and Delta, all
+// f32.
+template <typename T, int kDW>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                       int S, int H, int KV, int D, Strides qs, Strides ks, Strides vs,
                       Strides dos, Strides dks, Strides dvs, float sm_scale, int causal) {
+  constexpr int kDPer = kDW / 16;
+  constexpr int kBK = dkdv_rows(kDW);  // keys per block
+  constexpr int kA = kBK / 16;         // key rows per thread
   extern __shared__ float smem[];
   const int ld = D + 1;
   constexpr int ldp = kBlockQ + 1;
-  float* k_tile = smem;                     // kBlockK x ld
-  float* v_tile = k_tile + kBlockK * ld;    // kBlockK x ld
-  float* q_tile = v_tile + kBlockK * ld;    // kBlockQ x ld
+  float* k_tile = smem;                     // kBK x ld
+  float* v_tile = k_tile + kBK * ld;        // kBK x ld
+  float* q_tile = v_tile + kBK * ld;        // kBlockQ x ld
   float* do_tile = q_tile + kBlockQ * ld;   // kBlockQ x ld
-  float* pt_tile = do_tile + kBlockQ * ld;  // kBlockK x ldp: P^T, then dS^T
-  float* stat = pt_tile + kBlockK * ldp;    // lse[kBlockQ], Delta[kBlockQ]
+  float* pt_tile = do_tile + kBlockQ * ld;  // kBK x ldp: P^T, then dS^T
+  float* stat = pt_tile + kBK * ldp;        // lse[kBlockQ], Delta[kBlockQ]
 
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int group = H / KV;
-  const int k0 = kt * kBlockK;
+  const int k0 = kt * kBK;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 
-  stage_tile(k_tile, ld, k + b * ks.b + kvh * ks.h, ks.s, k0, S, D, tid);
-  stage_tile(v_tile, ld, v + b * vs.b + kvh * vs.h, vs.s, k0, S, D, tid);
+  stage_tile<T, kDW, kBK>(k_tile, ld, k + b * ks.b + kvh * ks.h, ks.s, k0, S, D, tid);
+  stage_tile<T, kDW, kBK>(v_tile, ld, v + b * vs.b + kvh * vs.h, vs.s, k0, S, D, tid);
 
   // rows are keys k0 + ty + 16 a, columns are D columns tx + 16 j
-  float dk_acc[4][kDPer], dv_acc[4][kDPer];
+  float dk_acc[kA][kDPer], dv_acc[kA][kDPer];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < kA; ++a)
 #pragma unroll
     for (int j = 0; j < kDPer; ++j) dk_acc[a][j] = dv_acc[a][j] = 0.f;
 
   const int n_tiles = (S + kBlockQ - 1) / kBlockQ;
-  const int qt0 = causal ? kt : 0;  // kBlockQ == kBlockK
+  const int qt0 = causal ? k0 / kBlockQ : 0;
   for (int g = 0; g < group; ++g) {
     const int h = kvh * group + g;
     const int64_t row_base = (static_cast<int64_t>(b) * H + h) * S;
@@ -431,8 +452,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     for (int qt = qt0; qt < n_tiles; ++qt) {
       const int q0 = qt * kBlockQ;
       __syncthreads();  // the last query tile and dS^T are read by everyone
-      stage_tile(q_tile, ld, qb, qs.s, q0, S, D, tid);
-      stage_tile(do_tile, ld, dob, dos.s, q0, S, D, tid);
+      stage_tile<T, kDW, kBlockQ>(q_tile, ld, qb, qs.s, q0, S, D, tid);
+      stage_tile<T, kDW, kBlockQ>(do_tile, ld, dob, dos.s, q0, S, D, tid);
       if (tid < kBlockQ) {
         const int qpos = q0 + tid;
         stat[tid] = qpos < S ? lse[row_base + qpos] : 0.f;
@@ -440,15 +461,15 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
       }
       __syncthreads();
       // S^T and dP^T: rows keys ty + 16 a, columns queries tx + 16 c
-      float st[4][4], dpt[4][4];
+      float st[kA][4], dpt[kA][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < kA; ++a)
 #pragma unroll
         for (int c = 0; c < 4; ++c) st[a][c] = dpt[a][c] = 0.f;
       for (int dd = 0; dd < D; ++dd) {
-        float kr[4], vr[4], qc[4], oc[4];
+        float kr[kA], vr[kA], qc[4], oc[4];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
+        for (int a = 0; a < kA; ++a) {
           kr[a] = k_tile[(ty + 16 * a) * ld + dd];
           vr[a] = v_tile[(ty + 16 * a) * ld + dd];
         }
@@ -458,7 +479,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
           oc[c] = do_tile[(tx + 16 * c) * ld + dd];
         }
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < kA; ++a)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             st[a][c] = fmaf(kr[a], qc[c], st[a][c]);
@@ -466,7 +487,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
           }
       }
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
+      for (int a = 0; a < kA; ++a) {
         const int kpos = k0 + ty + 16 * a;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -480,36 +501,36 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
       }
       __syncthreads();  // P^T complete
       for (int qq = 0; qq < kBlockQ; ++qq) {
-        float pv[4], ov[kDPer];
+        float pv[kA], ov[kDPer];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) pv[a] = pt_tile[(ty + 16 * a) * ldp + qq];
+        for (int a = 0; a < kA; ++a) pv[a] = pt_tile[(ty + 16 * a) * ldp + qq];
 #pragma unroll
         for (int j = 0; j < kDPer; ++j) {
           const int c = tx + 16 * j;
           ov[j] = c < D ? do_tile[qq * ld + c] : 0.f;
         }
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < kA; ++a)
 #pragma unroll
           for (int j = 0; j < kDPer; ++j) dv_acc[a][j] = fmaf(pv[a], ov[j], dv_acc[a][j]);
       }
       __syncthreads();  // P^T read by everyone
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < kA; ++a)
 #pragma unroll
         for (int c = 0; c < 4; ++c) pt_tile[(ty + 16 * a) * ldp + tx + 16 * c] = dpt[a][c];
       __syncthreads();  // dS^T complete
       for (int qq = 0; qq < kBlockQ; ++qq) {
-        float sv[4], qv[kDPer];
+        float sv[kA], qv[kDPer];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) sv[a] = pt_tile[(ty + 16 * a) * ldp + qq];
+        for (int a = 0; a < kA; ++a) sv[a] = pt_tile[(ty + 16 * a) * ldp + qq];
 #pragma unroll
         for (int j = 0; j < kDPer; ++j) {
           const int c = tx + 16 * j;
           qv[j] = c < D ? q_tile[qq * ld + c] : 0.f;
         }
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < kA; ++a)
 #pragma unroll
           for (int j = 0; j < kDPer; ++j) dk_acc[a][j] = fmaf(sv[a], qv[j], dk_acc[a][j]);
       }
@@ -519,7 +540,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   T* dkb = dk + b * dks.b + kvh * dks.h;
   T* dvb = dv + b * dvs.b + kvh * dvs.h;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < kA; ++a) {
     const int kpos = k0 + ty + 16 * a;
     if (kpos >= S) continue;
 #pragma unroll
@@ -535,11 +556,16 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 
 // ---- bf16: the tensor-core kernels ------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kTile = 64;         // query and key rows per tile
 constexpr int kMmaThreads = 128;  // 4 warps of 16 rows
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Output columns of dK/dV per block: all of kD up to 128. At kD = 256 half
+// of them, the halves on a grid axis of their own: dK and dV together would
+// be 256 f32 registers a thread. Each half computes S^T and dP^T over all of
+// D again; no atomics, so the halves stay bit-equal on repeat. (dQ's 128
+// accumulator registers at kD = 256 fit beside the rest without a spill.)
+__host__ __device__ constexpr int dkdv_cols(int d) { return d > 128 ? 128 : d; }
 
 template <int kD>
 struct TileShape {
@@ -547,90 +573,6 @@ struct TileShape {
   static constexpr int kElems = kTile * kLd;   // one 64-row tile
   static constexpr int kBytes = kElems * 2;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes into shared memory; the bytes past src_bytes (all of them for 0)
-// are zeros and are not read
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a b for one 16 x 8 x 16 product: a is 16 x 16 (row), b 16 x 8 (col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 as a bf16 pair, rounded to nearest even; lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The A operand of one 16-wide k-step from the f32 accumulators of the two
-// 8-column tiles that make it up (c0: columns 0-7, c1: 8-15), rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Per-lane element offsets of an ldmatrix.x4 within a tile of row stride
-// kLd. A operand of rows [r, r + 16), k-step at column c: add r * kLd + c.
-template <int kLd>
-__device__ __forceinline__ int a_offset(int lane) {
-  return (lane & 15) * kLd + (lane >> 4) * 8;
-}
-// B operands of two 8-wide n-tiles from [n][k] rows (K for Q K^T): the four
-// registers are b0, b1 of n-tile 0 and b0, b1 of n-tile 1.
-template <int kLd>
-__device__ __forceinline__ int b_offset(int lane) {
-  return ((lane & 7) + ((lane >> 4) << 3)) * kLd + ((lane >> 3) & 1) * 8;
-}
-// The same from [k][n] rows through .trans (V for P V).
-template <int kLd>
-__device__ __forceinline__ int bt_offset(int lane) {
-  return ((lane & 7) + (((lane >> 3) & 1) << 3)) * kLd + (lane >> 4) * 8;
-}
 
 // Stage rows [s0, s0 + 64) of one head (row stride rs) into a padded tile;
 // rows at or past S and columns at or past D become zeros. kVec: 16-byte
@@ -676,7 +618,7 @@ __device__ __forceinline__ void store_pair(bf16* row, int c, int D, float x0, fl
 }
 
 template <int kD, bool kVec>
-__global__ void __launch_bounds__(kMmaThreads, 3)
+__global__ void __launch_bounds__(kMmaThreads, kD > 128 ? 1 : 3)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                      int S, int H, int KV, int D, Strides qs, Strides ks, Strides vs, Strides os,
@@ -687,9 +629,12 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sk = reinterpret_cast<bf16*>(smem_raw);  // two stages
   bf16* sv = sk + 2 * kT;                        // two stages
-  // Q passes through K's second stage: it is read into registers before the
-  // first prefetch writes there
-  bf16* sq = sk + kT;
+  // Up to kD = 128, Q passes through K's second stage: it is read into
+  // registers before the first prefetch writes there. At kD = 256 its
+  // fragments would take 64 more registers a thread beside O's 128, so Q
+  // keeps a tile of its own and each k-step reads it again.
+  constexpr bool kQRegs = kD <= 128;
+  bf16* sq = kQRegs ? sk + kT : sv + 2 * kT;
 
   const int n_tiles = (S + kTile - 1) / kTile;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -711,13 +656,15 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile<kD, kVec>(sv, vb, vs.s, 0, S, D, tid);
   cp_async_commit();
 
-  const int a_off = a_offset<kLd>(lane), b_off = b_offset<kLd>(lane),
-            bt_off = bt_offset<kLd>(lane);
+  const int a_off = a_offset(lane, kLd), b_off = b_offset(lane, kLd),
+            bt_off = bt_offset(lane, kLd);
   cp_async_wait<1>();  // Q and the first K
   __syncthreads();
-  uint32_t qf[kKs][4];
+  uint32_t qf[kQRegs ? kKs : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < kKs; ++kk) ldsm_x4(qf[kk], sq + warp * 16 * kLd + a_off + kk * 16);
+    for (int kk = 0; kk < kKs; ++kk) ldsm_x4(qf[kk], sq + warp * 16 * kLd + a_off + kk * 16);
+  }
 
   float acc[kDn][4];
 #pragma unroll
@@ -745,12 +692,19 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKs; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldsm_x4(qa, sq + warp * 16 * kLd + a_off + kk * 16);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bf[4];
         ldsm_x4(bf, kst + np * 16 * kLd + b_off + kk * 16);
-        mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+        mma_bf16(s[2 * np], qa, bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], qa, bf[2], bf[3]);
       }
     }
 
@@ -917,8 +871,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     dl[r] = sdelta[warp * 16 + g + r * 8];
   }
 
-  const int a_off = a_offset<kLd>(lane), b_off = b_offset<kLd>(lane),
-            bt_off = bt_offset<kLd>(lane);
+  const int a_off = a_offset(lane, kLd), b_off = b_offset(lane, kLd),
+            bt_off = bt_offset(lane, kLd);
   const float scale2 = sm_scale * kLog2e;
   float dqa[kDn][4];
 #pragma unroll
@@ -1024,7 +978,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           Strides qs, Strides ks, Strides vs, Strides dos, Strides dks,
                           Strides dvs, float sm_scale, int causal) {
   constexpr int kLd = TileShape<kD>::kLd, kT = TileShape<kD>::kElems;
-  constexpr int kKs = kD / 16, kDn = kD / 8;
+  constexpr int kDo = dkdv_cols(kD);  // output columns of this block
+  constexpr int kKs = kD / 16, kDn = kDo / 8;
   constexpr int kSub = 32;  // queries per pass over a tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sk = reinterpret_cast<bf16*>(smem_raw);
@@ -1035,7 +990,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   float* sdl = slse + 2 * kTile;                          // two stages of kTile
 
   const int n_tiles = (S + kTile - 1) / kTile;
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int kvh = blockIdx.x / (kD / kDo), b = blockIdx.y;
+  const int d0 = (blockIdx.x % (kD / kDo)) * kDo;
   const int kt = blockIdx.z;  // causal: the first key tiles have the most query tiles
   const int group = H / KV;
   const int k0 = kt * kTile;
@@ -1067,8 +1023,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   load_q(0, 0);
   cp_async_commit();
 
-  const int a_off = a_offset<kLd>(lane), b_off = b_offset<kLd>(lane),
-            bt_off = bt_offset<kLd>(lane);
+  const int a_off = a_offset(lane, kLd), b_off = b_offset(lane, kLd),
+            bt_off = bt_offset(lane, kLd);
   const float scale2 = sm_scale * kLog2e;
   float dka[kDn][4], dva[kDn][4];
 #pragma unroll
@@ -1130,9 +1086,9 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         uint32_t pa[4];
         acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-        for (int dp = 0; dp < kD / 16; ++dp) {
-            uint32_t bf[4];
-          ldsm_x4_t(bf, dost + (c0 + kk * 16) * kLd + bt_off + dp * 16);
+        for (int dp = 0; dp < kDo / 16; ++dp) {
+          uint32_t bf[4];
+          ldsm_x4_t(bf, dost + (c0 + kk * 16) * kLd + bt_off + d0 + dp * 16);
           mma_bf16(dva[2 * dp], pa, bf[0], bf[1]);
           mma_bf16(dva[2 * dp + 1], pa, bf[2], bf[3]);
         }
@@ -1166,9 +1122,9 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         uint32_t da[4];
         acc_to_a(da, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-        for (int dp = 0; dp < kD / 16; ++dp) {
-            uint32_t bf[4];
-          ldsm_x4_t(bf, qst + (c0 + kk * 16) * kLd + bt_off + dp * 16);
+        for (int dp = 0; dp < kDo / 16; ++dp) {
+          uint32_t bf[4];
+          ldsm_x4_t(bf, qst + (c0 + kk * 16) * kLd + bt_off + d0 + dp * 16);
           mma_bf16(dka[2 * dp], da, bf[0], bf[1]);
           mma_bf16(dka[2 * dp + 1], da, bf[2], bf[3]);
         }
@@ -1184,7 +1140,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     if (key >= S) continue;
 #pragma unroll
     for (int dn = 0; dn < kDn; ++dn) {
-      const int c = dn * 8 + 2 * t;
+      const int c = d0 + dn * 8 + 2 * t;
       store_pair<kVec>(dkb + key * dks.s, c, D, dka[dn][2 * r] * sm_scale,
                        dka[dn][2 * r + 1] * sm_scale);
       store_pair<kVec>(dvb + key * dvs.s, c, D, dva[dn][2 * r], dva[dn][2 * r + 1]);
@@ -1194,50 +1150,54 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
 // ---- launches ------------------------------------------------------------
 
-template <typename T>
+template <typename T, int kDW>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S, int H,
            int KV, int D, Strides qs, Strides ks, Strides vs, Strides os, float sm_scale,
            int causal, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (static_cast<size_t>(kBlockQ + kBlockK) * (D + 1) +
                                        static_cast<size_t>(kBlockQ) * (kBlockK + 1));
   // above 48 KB a block's shared memory has to be asked for
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, kDW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, kDW><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, S, H, KV, D, qs, ks, vs, os, sm_scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int kDW>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int S,
                int H, int KV, int D, Strides qs, Strides ks, Strides vs, Strides os, Strides dos,
                Strides dqs, Strides dks, Strides dvs, float sm_scale, int causal,
                cudaStream_t stream) {
+  constexpr int kBK = dkdv_rows(kDW);
   const size_t tile = static_cast<size_t>(kBlockQ) * (D + 1);  // kBlockQ == kBlockK
   const size_t smem_dq = sizeof(float) * (3 * tile + static_cast<size_t>(kBlockQ) * (kBlockK + 1));
   const size_t smem_dkdv =
-      sizeof(float) * (4 * tile + static_cast<size_t>(kBlockK) * (kBlockQ + 1) + 2 * kBlockQ);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>,
+      sizeof(float) * (2 * tile + 2 * static_cast<size_t>(kBK) * (D + 1) +
+                       static_cast<size_t>(kBK) * (kBlockQ + 1) + 2 * kBlockQ);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, kDW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_dq));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, kDW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_dkdv));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_tiles = (S + kBlockQ - 1) / kBlockQ;
   // dQ first: it writes the Delta that dK/dV reads
-  flash_bwd_dq_kernel<T><<<dim3(n_tiles, H, B), kThreads, smem_dq, stream>>>(
+  flash_bwd_dq_kernel<T, kDW><<<dim3(n_tiles, H, B), kThreads, smem_dq, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), S,
       H, KV, D, qs, ks, vs, os, dos, dqs, sm_scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_kernel<T><<<dim3(n_tiles, KV, B), kThreads, smem_dkdv, stream>>>(
+  const dim3 grid_dkdv((S + kBK - 1) / kBK, KV, B);
+  flash_bwd_dkdv_kernel<T, kDW><<<grid_dkdv, kThreads, smem_dkdv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H,
       KV, D, qs, ks, vs, dos, dks, dvs, sm_scale, causal);
@@ -1257,7 +1217,8 @@ template <int kD, bool kVec>
 int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                int H, int KV, int D, Strides qs, Strides ks, Strides vs, Strides os,
                float sm_scale, int causal, cudaStream_t stream) {
-  constexpr int smem = 4 * TileShape<kD>::kBytes;  // two stages of K and of V (Q in K's second)
+  // two stages of K and of V (Q in K's second up to kD = 128, in a fifth tile at 256)
+  constexpr int smem = (kD > 128 ? 5 : 4) * TileShape<kD>::kBytes;
   dim3 grid;
   if (const int bad = mma_grid(S, H, B, &grid)) return bad;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<kD, kVec>,
@@ -1281,7 +1242,7 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o, c
   constexpr int smem_dkdv = 6 * TileShape<kD>::kBytes + 4 * kTile * 4;
   dim3 grid_dq, grid_dkdv;
   if (const int bad = mma_grid(S, H, B, &grid_dq)) return bad;
-  if (const int bad = mma_grid(S, KV, B, &grid_dkdv)) return bad;
+  if (const int bad = mma_grid(S, KV * (kD / dkdv_cols(kD)), B, &grid_dkdv)) return bad;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<kD, kVec>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1313,10 +1274,11 @@ bool vec_ok(int D, std::initializer_list<const void*> ptrs, std::initializer_lis
   return true;
 }
 
-// kD = 64 or 128 by D; kVec by vec_ok
-#define REPRO_FLASH_DISPATCH(fn, d, vec, ...)                                      \
-  ((d) <= 64 ? ((vec) ? fn<64, true>(__VA_ARGS__) : fn<64, false>(__VA_ARGS__))    \
-             : ((vec) ? fn<128, true>(__VA_ARGS__) : fn<128, false>(__VA_ARGS__)))
+// kD = 64, 128 or 256 by D; kVec by vec_ok
+#define REPRO_FLASH_DISPATCH(fn, d, vec, ...)                                          \
+  ((d) <= 64    ? ((vec) ? fn<64, true>(__VA_ARGS__) : fn<64, false>(__VA_ARGS__))     \
+   : (d) <= 128 ? ((vec) ? fn<128, true>(__VA_ARGS__) : fn<128, false>(__VA_ARGS__))   \
+                : ((vec) ? fn<256, true>(__VA_ARGS__) : fn<256, false>(__VA_ARGS__)))
 
 }  // namespace
 
@@ -1336,7 +1298,9 @@ extern "C" int repro_flash_attention(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == repro::kFloat32)
-    return launch<float>(q, k, v, o, l, B, S, H, KV, D, qs, ks, vs, os, sm_scale, causal, s);
+    return D <= 128
+               ? launch<float, 128>(q, k, v, o, l, B, S, H, KV, D, qs, ks, vs, os, sm_scale, causal, s)
+               : launch<float, 256>(q, k, v, o, l, B, S, H, KV, D, qs, ks, vs, os, sm_scale, causal, s);
   if (dtype == repro::kBFloat16) {
     const bool vec = vec_ok(D, {q, k, v, o}, {qs, ks, vs, os});
     return REPRO_FLASH_DISPATCH(launch_mma, D, vec, q, k, v, o, l, B, S, H, KV, D, qs, ks, vs, os,
@@ -1368,8 +1332,10 @@ extern "C" int repro_flash_attention_bwd(
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == repro::kFloat32)
-    return launch_bwd<float>(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, KV, D, qs, ks, vs, os,
-                             dos, dqs, dks, dvs, sm_scale, causal, s);
+    return D <= 128 ? launch_bwd<float, 128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, KV, D, qs,
+                                             ks, vs, os, dos, dqs, dks, dvs, sm_scale, causal, s)
+                    : launch_bwd<float, 256>(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, KV, D, qs,
+                                             ks, vs, os, dos, dqs, dks, dvs, sm_scale, causal, s);
   if (dtype == repro::kBFloat16) {
     const bool vec = vec_ok(D, {q, k, v, o, dout, dq, dk, dv}, {qs, ks, vs, os, dos, dqs, dks, dvs});
     return REPRO_FLASH_DISPATCH(launch_bwd_mma, D, vec, q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H,

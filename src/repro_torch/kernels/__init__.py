@@ -17,5 +17,6 @@ with nvcc for ``sm_90a`` and binds them with ctypes.
   int8_quant       — block-scaled int8 quantize and dequantize, the
                      gradient wire format   (csrc/int8_quant.cu)
   ssd_scan         — Mamba-2 SSD chunked scan with a carried f32 state,
-                     forward               (csrc/ssd_scan.cu)
+                     forward: chunk states, the pass over the chunks,
+                     chunk outputs        (csrc/ssd_scan.cu)
 """

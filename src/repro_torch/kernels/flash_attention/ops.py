@@ -16,7 +16,9 @@ does not have (softmax, lse and Delta stay f32).
 
 The kernels read q, k and v through their strides, so neither the transpose
 to ``(B, H, S, D)`` nor the reference wrapper's padding of the sequence to
-block multiples and of D to 128 lanes is needed. Query head h reads KV head
+block multiples and of D to 128 lanes is needed: the kernels pad D in shared
+memory to 64, 128 or 256 and take any D up to ``MAX_D`` = 256 (a wider D
+raises; no architecture in the repo passes 128). Query head h reads KV head
 ``h // (H // KV)``; ``sm_scale`` is ``1/sqrt(D)``. In bf16, rows whose
 base or stride is not 16-byte aligned (or D not a multiple of 8) are
 staged with 2-byte loads instead of 16-byte copies.
@@ -40,7 +42,7 @@ import torch
 from .. import _build
 from .ref import attention_bwd_ref, attention_ref
 
-MAX_D = 128
+MAX_D = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
     [ctypes.c_void_p] * 5  # q, k, v, out, lse (null when not wanted)
@@ -73,7 +75,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[int, int,
     if k.shape != (b, s, kv, d) or v.shape != k.shape or kv == 0 or h % kv:
         raise ValueError(f"flash_attention shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not 0 < d <= MAX_D:
-        raise ValueError(f"flash_attention kernel needs 0 < D <= {MAX_D}, got {d}")
+        raise ValueError(f"flash_attention kernel needs 0 < D <= {MAX_D} (the kernels' cap), "
+                         f"got {d}")
     return b, s, h, kv, d
 
 

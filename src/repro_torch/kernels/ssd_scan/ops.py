@@ -1,19 +1,24 @@
-"""The Mamba-2 SSD scan on the model layout: the CUDA kernel
+"""The Mamba-2 SSD scan on the model layout: the CUDA kernels
 (``csrc/ssd_scan.cu``) for CUDA tensors, the plain chunked version
 (``ref.ssd_scan_ref``) for CPU tensors.
 
-The kernel reads x ``(B, S, H, P)`` and B, C ``(B, S, G, N)`` through their
+The kernels read x ``(B, S, H, P)`` and B, C ``(B, S, G, N)`` through their
 strides, so neither the reference wrapper's move of the sequence axis nor
-its padding to a multiple of ``block_q`` is needed; it picks its own chunk
-of 32 positions, and ``block_q`` sets the chunk of the plain version only
-(the result does not depend on the chunk beyond rounding). Beyond the
+its padding to a multiple of ``block_q`` is needed. They take chunks of 64
+positions, and ``block_q`` sets the chunk of the plain version only (the
+result does not depend on the chunk beyond rounding). One call makes three
+CUDA launches, each parallel over (chunk, head, batch) or (batch, head, p,
+n): every chunk's own state contribution into an f32 workspace, the pass
+that carries the state across the chunks, and every chunk's output; bf16
+runs their products on the tensor cores. The bound on the card is the bytes
+(x, B, C and dt read once, y and the final state written once). Beyond the
 reference's signature there is one keyword, ``initial_state``: the state
 the scan starts from (zeros when None), which the model's prefill passes
 from its cache, as the reference's ``ssd_chunked`` takes one.
 
 There is no backward kernel yet (the SSM training slice): asking for a
-gradient through a CUDA tensor raises. ``launches`` counts the kernel's
-launches; the CPU path leaves it alone.
+gradient through a CUDA tensor raises. ``launches`` counts calls that
+launched the kernels; the CPU path leaves it alone.
 """
 from __future__ import annotations
 
@@ -26,9 +31,11 @@ from .. import _build
 from .ref import ssd_scan_ref
 
 MAX_N = 256
+CHUNK = 64  # the kernels' chunk of positions
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
-    [ctypes.c_void_p] * 8  # x, dt, A, B, C, initial state (null: zeros), y, final state
+    [ctypes.c_void_p] * 11  # x, dt, A, B, C, initial state (null: zeros), y, final state,
+    # the workspace, its bf16 copy (null for f32), the chunk totals
     + [ctypes.c_int] * 6  # B, S, H, G, P, N
     + [ctypes.c_int64] * 15  # (batch, seq, head) strides of x, dt, B, C, y
     + [ctypes.c_int, ctypes.c_void_p]  # dtype, stream
@@ -87,11 +94,18 @@ def ssd_scan(
     init = None if initial_state is None else initial_state.float().contiguous()
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    nc = -(-s // CHUNK)
+    ws = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=x.device)
+    # bf16: the incoming states as the output kernel's bf16 operands
+    ws_in = torch.empty_like(ws, dtype=x.dtype) if x.dtype == torch.bfloat16 else None
+    total = torch.empty((b, h, nc), dtype=torch.float32, device=x.device)
     fn = _build.entry("ssd_scan", "repro_ssd_scan", _ARGTYPES)
     strides = [st for t in (x, dt, Bm, Cm, y) for st in t.stride()[:3]]
     code = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
               init.data_ptr() if init is not None else None, y.data_ptr(), state.data_ptr(),
-              b, s, h, g, p, n, *strides, _DTYPES[x.dtype], _build.stream_ptr(x.device))
+              ws.data_ptr(), ws_in.data_ptr() if ws_in is not None else None, total.data_ptr(),
+              b, s, h, g, p, n, *strides, _DTYPES[x.dtype],
+              _build.stream_ptr(x.device))
     _build.check("ssd_scan", code)
     launches += 1
     return y, state

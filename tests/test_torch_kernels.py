@@ -46,6 +46,9 @@ FLASH_CASES = [
     (1, 256, 8, 2, 128, False, "float32"),
     (1, 256, 4, 2, 64, True, "bfloat16"),
     (1, 130, 2, 2, 32, True, "float32"),  # ragged: S not a multiple of the tile
+    # past D = 128: D = 192 (padded to 256) and D = 256
+    (1, 96, 4, 2, 192, True, "float32"),
+    (1, 80, 2, 1, 256, True, "bfloat16"),
 ]
 # the last three: mamba2's gated norm (1536), zamba2's (4096), pixtral's and
 # llama4-scout's model width (5120)
@@ -68,7 +71,18 @@ SSD_CASES = [
     (2, 200, 8, 32, 2, 32, True, "float32"),
     (1, 130, 4, 40, 2, 16, True, "float32"),
     (3, 1, 6, 16, 3, 256, True, "bfloat16"),
+    # the kernels' 64-position chunk edges
+    (1, 1, 4, 64, 1, 128, True, "float32"),
+    (1, 63, 4, 64, 1, 128, True, "bfloat16"),
+    (1, 64, 4, 64, 1, 128, False, "float32"),
+    (2, 65, 4, 64, 2, 64, True, "bfloat16"),
+    # a long prompt with P = 128, N = 256 and 8 groups
+    (1, 2048, 16, 128, 8, 256, True, "bfloat16"),
+    (1, 2048, 16, 128, 8, 256, False, "float32"),
 ]
+# D past 128 on the card: the kD = 256 kernels (D = 192 padded to 256)
+FLASH_WIDE_CASES = [(1, 300, 8, 4, 256, True, "bfloat16"), (1, 130, 4, 2, 192, False, "bfloat16"),
+                    (2, 97, 4, 2, 256, True, "float32"), (1, 130, 4, 2, 192, False, "float32")]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -376,7 +390,7 @@ class TestKernelsOnCard:
         "b,s,h,kv,d,causal,dtype",
         FLASH_CASES + [(1, 300, 16, 8, 128, True, "bfloat16"), (1, 700, 16, 8, 128, True, "bfloat16"),
                        (2, 97, 6, 3, 128, True, "float32"), (1, 1, 16, 8, 128, True, "bfloat16")]
-        + FLASH_BF16_CASES,
+        + FLASH_BF16_CASES + FLASH_WIDE_CASES,
     )
     def test_flash_attention(self, cuda, b, s, h, kv, d, causal, dtype):
         q, k, v = (torch.from_numpy(_normal(i, shp)).to(cuda, TORCH_DT[dtype]) for i, shp in
@@ -441,7 +455,8 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("b,s,h,kv,d,dtype", [(1, 700, 16, 8, 128, "bfloat16"),
                                                   (1, 700, 32, 32, 64, "bfloat16"),
-                                                  (2, 97, 6, 3, 128, "float32")])
+                                                  (2, 97, 6, 3, 128, "float32")]
+                             + [(b, s, h, kv, d, dt) for b, s, h, kv, d, _, dt in FLASH_WIDE_CASES])
     def test_flash_bwd_is_bit_equal_across_calls(self, cuda, b, s, h, kv, d, dtype):
         # no float atomics: the grid trainer's quorum compares replicas'
         # gradients, so equal inputs must give equal bits
@@ -453,6 +468,16 @@ class TestKernelsOnCard:
             again = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
             for x, y in zip(first, again):
                 assert torch.equal(x, y)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_flash_refuses_d_past_the_cap(self, cuda, dtype):
+        # D > 256 raises on the card, naming the cap, forward and backward
+        q = torch.zeros((1, 8, 2, 257), device=cuda, dtype=TORCH_DT[dtype])
+        with pytest.raises(ValueError, match="D <= 256"):
+            flash_ops.flash_attention(q, q, q, causal=True)
+        lse = torch.zeros((1, 2, 8), device=cuda)
+        with pytest.raises(ValueError, match="D <= 256"):
+            flash_ops.flash_attention_bwd(q, q, q, q, lse, q, causal=True)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("shape", RMS_SHAPES + [(4096, 1024), (65536, 128), (5, 77), (3, 1024)])
@@ -485,7 +510,7 @@ class TestKernelsOnCard:
         "b,s,h,kv,d,causal,dtype",
         FLASH_BWD_CASES + [(2, 2048, 16, 8, 128, True, "bfloat16"),
                            (2, 97, 6, 3, 128, True, "float32")]
-        + [c for c in FLASH_BF16_CASES if c not in FLASH_BWD_CASES],
+        + [c for c in FLASH_BF16_CASES if c not in FLASH_BWD_CASES] + FLASH_WIDE_CASES,
     )
     def test_flash_bwd(self, cuda, b, s, h, kv, d, causal, dtype):
         shapes = [(b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d)]
@@ -566,3 +591,25 @@ class TestKernelsOnCard:
         assert torch.equal(y, y2) and torch.equal(state, state2)
         with pytest.raises(NotImplementedError, match="backward"):
             ssd_ops.ssd_scan(x.detach().requires_grad_(), dt, A, bm, cm)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_ssd_scan_reads_strided_inputs_at_width(self, cuda, dtype):
+        # x, B and C sliced from one activation at P = 128, N = 256, 8 groups
+        # over 2048 positions: the 16-byte loads read them in place, and the
+        # result equals that of contiguous copies bit for bit and the plain
+        # version's within the dtype's tolerance
+        b, s, h, p, g, n = 1, 2048, 16, 128, 8, 256
+        xbc = torch.from_numpy(_normal(8, (b, s, h * p + 2 * g * n)) * 0.3).to(cuda, TORCH_DT[dtype])
+        x = xbc[..., :h * p].view(b, s, h, p)
+        bm = xbc[..., h * p:h * p + g * n].view(b, s, g, n)
+        cm = xbc[..., h * p + g * n:].view(b, s, g, n)
+        dt = torch.nn.functional.softplus(torch.from_numpy(_normal(2, (b, s, h)))).to(cuda) * 0.05 + 0.001
+        A = -torch.exp(torch.from_numpy(_normal(3, (h,))).to(cuda) * 0.3)
+        y, state = ssd_ops.ssd_scan(x, dt, A, bm, cm)
+        y2, state2 = ssd_ops.ssd_scan(x.contiguous(), dt, A, bm.contiguous(), cm.contiguous())
+        assert torch.equal(y, y2) and torch.equal(state, state2)
+        want_y, want_state = ssd_scan_ref(x, dt, A, bm, cm, block_q=256)
+        tol = 1e-4 if dtype == "float32" else 2e-2
+        torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(state, want_state, atol=1e-4 if dtype == "float32" else tol,
+                                   rtol=1e-4 if dtype == "float32" else tol)
