@@ -9,7 +9,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    build the six kernel libraries from ``src/repro_torch/csrc`` (one nvcc
    per source, all at once) into ``build/kernels/``; print each flash,
    rmsnorm and ssd_scan kernel's registers and spills (``-Xptxas -v``; the
-   kD = 256 flash kernels among them), the others' in sum.
+   kD = 256 flash kernels and the ssd_scan backward's among them), the
+   others' in sum.
 2. Each kernel, forward and backward, against its plain PyTorch version on
    the card, at the serving and training paths' shapes in bf16 and f32, with
    the tolerance stated; per kernel its device time (torch.profiler; a
@@ -47,7 +48,15 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    2048-token prompt at P = 128, N = 256 in 8 groups, and against the
    sequential oracle at the reference test's size to 3e-4; at the two
    prefill shapes the profiler splits a call's time between its three
-   kernels. No single PyTorch call computes the SSD scan either.
+   kernels. No single PyTorch call computes the SSD scan either. The
+   ssd_scan backward (six launches a call) is held against its plain
+   version and against autograd of the plain forward, each gradient to 1e-4
+   (f32) or 2e-2 (bf16) of its leaf's largest entry, at the mamba2-130m and
+   zamba2-1.2b training shapes (2 x 2048 tokens), a ragged (1, 333, 24, 40),
+   two groups and (1, 2048, 16, 128) N = 256 in 8 groups with an initial
+   state and a final-state gradient, in bf16 and f32; every call is run
+   twice more and must give the same bits; at the training shapes its time
+   is split by kernel beside the plain version's and the bound.
 3. Serve qwen3-0.6b at full width (28 layers, random weights from a seeded
    generator, bf16 compute) through ``BatchServer``: 8 ragged requests of
    64-700 prompt tokens, 32 new tokens each, EDF deadlines. Every kernel
@@ -97,6 +106,19 @@ Phases, in order; the first failure ends the run with a non-zero exit:
     per forward; then the same profiles and checks.
 12. zamba2-1.2b's f32 prefill logits on the card against the CPU at 8
     layers (one group and the tail).
+13. Train mamba2-130m at full width through ``GridTrainer`` with phase 5's
+    settings; counters zeroed before and read after: ssd_scan and rmsnorm,
+    forward and backward, and quorum_compare non-zero, flash and swiglu
+    none; 0 wrong accepted. One grad job profiled: it must show the ssd_scan
+    backward's kernels.
+14. Phase 6's f32 card-against-CPU grad step for mamba2-130m at its full
+    widths with 2 layers and zamba2-1.2b with 8 (one group and the tail):
+    the loss to 1e-4, each leaf to 1e-3 of its largest entry.
+15. Train mamba2-130m through ``runtime.train`` as phase 7 does (a ~1.6 GB
+    checkpoint), the resumed loss equal to the first run's.
+16. One zamba2-1.2b grad job at full width (38 layers, 2 x 2048 tokens)
+    through ``make_grad_step``: ssd_scan, rmsnorm, flash_attention and
+    swiglu, forward and backward, all launched; profiled.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
 numbers of this run (``launches``: the counts of the grid training run
@@ -106,7 +128,10 @@ run (phase 9) for ssd_scan and of the f32 grad step (phase 6) for the f32
 flash rows ``flash_attention_f32`` and ``flash_attention_bwd_f32``;
 ``launches_serve`` and ``launches_train_loop``, the serving run's and the
 training loop's, where the kernel runs there, and for ssd_scan
-``launches_serve_zamba2``, phase 11's; ``kernel`` on the flash rows); the last line is
+``launches_serve_zamba2``, phase 11's, and ``launches_train``,
+``launches_train_loop`` and ``launches_train_zamba2``, phases 13, 15 and
+16's; ``ssd_scan_bwd``'s ``launches`` are phase 13's, and its row carries
+its f32 and zamba2-shape times; ``kernel`` on the flash rows); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA card, or without the repository's ``src/`` beside it, the
 script exits non-zero and prints no result.
@@ -235,6 +260,9 @@ MMA_FLASH = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_
 # the single-block kernel they replaced, which no profile may show
 SSD_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_output_kernel")
 OLD_SSD = "ssd_scan_kernel"
+# one ssd_scan backward call: the two state kernels again (forwards, then in
+# reverse on dy and C), then these two
+SSD_BWD_KERNELS = ("ssd_chunk_bwd_kernel", "ssd_bwd_reduce_kernel")
 
 
 def short_kernel_names(dev_us) -> list:
@@ -339,6 +367,20 @@ def check_ssd_profile(dev_us, want: bool, label: str) -> None:
         log(f"{label}: ssd_scan kernels in the profile {[n for n in names if n.startswith('ssd')]}")
 
 
+def check_ssd_bwd_profile(dev_us, label: str) -> None:
+    """In a profile: the ssd_scan backward's own kernels ran, and the two
+    state kernels it reruns. A profile with no records is not checked, which
+    the log says."""
+    if not dev_us:
+        log(f"{label}: ssd_scan backward kernel names not checked (the profiler recorded nothing)")
+        return
+    names = [n.split("<")[0] for n in short_kernel_names(dev_us)]
+    missing = [k for k in (*SSD_BWD_KERNELS, *SSD_KERNELS[:2]) if k not in names]
+    if missing:
+        raise AssertionError(f"{label}: kernels {names}: ssd_scan backward kernels missing {missing}")
+    log(f"{label}: ssd_scan kernels in the profile {[n for n in names if n.startswith('ssd')]}")
+
+
 def profile_breakdown(fn, label: str, top: int = 10):
     """Run ``fn`` once under torch.profiler; print wall, device-busy and idle
     share and the ``top`` kernels by device time; return the per-kernel
@@ -379,7 +421,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_scan_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_scan_bwd_ref, ssd_scan_ref
     from repro_torch.kernels.swiglu import ops as swiglu_ops
     from repro_torch.kernels.swiglu.ref import swiglu_bwd_ref, swiglu_ref
     from repro_torch.models import hybrid_layout, init_cache, init_params, model_spec, ssm_config
@@ -397,9 +439,11 @@ def main() -> int:
     fwd_ops = {**ops, "ssd_scan": ssd_ops}  # the serving paths' kernels
 
     def counts():
-        """Every launch counter: forward, backward, quorum_compare, int8, ssd_scan."""
+        """Every launch counter: forward, backward, quorum_compare, int8, ssd_scan
+        forward and backward."""
         out = {name: mod.launches for name, mod in fwd_ops.items()}
         out.update({name: mod.launches_bwd for name, mod in bwd_ops.items()})
+        out["ssd_scan_bwd"] = ssd_ops.launches_bwd
         out["quorum_compare"] = quorum_ops.launches
         out["int8_quantize"] = int8_ops.launches_quantize
         out["int8_dequantize"] = int8_ops.launches_dequantize
@@ -408,7 +452,7 @@ def main() -> int:
     def zero_counts():
         for mod in (rms_ops, swiglu_ops, flash_ops):
             mod.launches = mod.launches_bwd = 0
-        quorum_ops.launches = ssd_ops.launches = 0
+        quorum_ops.launches = ssd_ops.launches = ssd_ops.launches_bwd = 0
         int8_ops.launches_quantize = int8_ops.launches_dequantize = 0
 
     # ---- 1. card and build -------------------------------------------------
@@ -885,6 +929,90 @@ def main() -> int:
 
     check_ssd_oracle(1, 200, 8, 32, 2, 32)
 
+    # the ssd_scan backward against its plain version (ssd_scan_bwd_ref) and
+    # against autograd of the plain forward, on the card: each gradient to
+    # tol times its leaf's largest entry (f32 1e-4; bf16 2e-2: the chunk's
+    # products take bf16 operands and dx, dB and dC are bf16); two more calls
+    # on the same inputs must give the same bits. Bound: bytes (x, dy, B, C, dt, A and,
+    # with a state, the initial state and the final state's gradient read
+    # once; dx, dB, dC, ddt, dA and dinit written once) or operations (the
+    # gradients of the forward's two P x N products per position and head,
+    # 2 x 4 x P x N, at the input type's peak; the forward's rule, doubled).
+    def check_ssd_bwd(b, s, h, p, g, n, dtype, tol, init=False, timed=False):
+        x, dy = randn(b, s, h, p, dtype=dtype), randn(b, s, h, p, dtype=dtype)
+        dt = torch.exp(uniform(b, s, h, lo=math.log(1e-3), hi=math.log(0.1)))
+        A = -uniform(h, lo=1.0, hi=16.0)
+        bm, cm = ((randn(b, s, g, n, dtype=f32) * 0.3).to(dtype) for _ in range(2))
+        st0 = randn(b, h, p, n, dtype=f32) * 0.5 if init else None
+        dst = randn(b, h, p, n, dtype=f32) if init else None
+        desc = f"({b}, {s}, {h}, {p}) g{g} n{n}{' +state' if init else ''}"
+
+        def kernel():
+            return ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, dy, dst, st0)
+
+        def plain():
+            return ssd_scan_bwd_ref(x, dt, A, bm, cm, dy, dst, st0, block_q=256)
+
+        got, want = kernel(), plain()
+        leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, bm, cm)]
+        leaves += [st0.clone().requires_grad_()] if init else []
+        y, fs = ssd_scan_ref(*leaves[:5], block_q=256, initial_state=leaves[5] if init else None)
+        auto = torch.autograd.grad([y, fs] if init else [y], leaves, [dy, dst] if init else [dy])
+        torch.cuda.synchronize()
+        names = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+        errs = {}
+        for label, ref_out in (("plain", want), ("autograd", auto)):
+            for name, o, w in zip(names, got, ref_out):
+                scale = w.float().abs().max().item()
+                err = (o.float() - w.float()).abs().max().item()
+                errs[(label, name)] = err / max(scale, 1e-30)
+                if not torch.isfinite(o).all() or err > tol * scale:
+                    raise AssertionError(f"ssd_scan_bwd {desc} {dtype} {name} against {label}: max abs "
+                                         f"err {err:.3e} past {tol} x max|leaf| {scale:.3e}")
+        for _ in range(2):
+            again = kernel()
+            if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                raise AssertionError(f"ssd_scan_bwd {desc} {dtype}: two calls on the same inputs differ")
+        worst = {label: max(v for (lb, _), v in errs.items() if lb == label) for label in ("plain", "autograd")}
+        log(f"[2] ssd_scan_bwd {desc:32s} {str(dtype).replace('torch.', ''):9s} max err / max|leaf| "
+            f"against the plain backward {worst['plain']:.3e}, autograd of the plain forward "
+            f"{worst['autograd']:.3e} (tol {tol}); bit-equal on repeat")
+        if not timed:
+            return None
+        es = esize(dtype)
+        nbytes = (3 * b * s * h * p + 4 * b * s * g * n) * es + 2 * 4 * b * s * h + 2 * 4 * h \
+            + (3 * 4 * b * h * p * n if init else 0)
+        nops = 8 * b * s * h * p * n
+        seen = []
+        rec = {"ms": device_ms(kernel, names=seen), "plain_ms": device_ms(plain), "library_ms": None,
+               "call_ms": time_ms(kernel), "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "ops_ms": nops / PEAK_OPS[str(dtype).replace("torch.", "")] * 1e3}
+        rec["bound_ms"] = max(rec["bytes_ms"], rec["ops_ms"])
+        rec["bound_by"] = "bytes" if rec["bytes_ms"] >= rec["ops_ms"] else "operations"
+        rec.update(max_abs_err=max((o.float() - w.float()).abs().max().item() for o, w in zip(got, want)),
+                   tol=tol, shape=desc, dtype=str(dtype).replace("torch.", ""), kernels=sorted(set(seen)))
+        # each of the call's kernels, device ms per call
+        dev_us, _ = profiled(kernel, 20)
+        split_ms = {(short_kernel_names({k: us}) or [k[:60]])[0]: round(us / 20 / 1e3, 5)
+                    for k, us in dev_us.items()}
+        check_ssd_bwd_profile(dev_us, f"[2] ssd_scan_bwd {desc}")
+        log(f"[2] ssd_scan_bwd {desc} {rec['dtype']}: kernel_ms {rec['ms']:.4f} (call {rec['call_ms']:.4f}) "
+            f"plain_ms {rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']}); device ms "
+            f"per call by kernel {json.dumps(split_ms)}")
+        return rec
+
+    # the training shapes (2 x 2048 tokens) of mamba2-130m and zamba2-1.2b,
+    # a ragged last chunk and P tile, two groups, and P = 128, N = 256 in 8
+    # groups with an initial state and a final-state gradient
+    results["ssd_scan_bwd"] = check_ssd_bwd(TRAIN_BATCH, TRAIN_SEQ, 24, 64, 1, 128, bf, 2e-2, timed=True)
+    ssd_bwd_f32 = check_ssd_bwd(TRAIN_BATCH, TRAIN_SEQ, 24, 64, 1, 128, f32, 1e-4, timed=True)
+    ssd_bwd_zamba2 = check_ssd_bwd(TRAIN_BATCH, TRAIN_SEQ, 64, 64, 1, 64, bf, 2e-2, timed=True)
+    ssd_bwd_zamba2_f32 = check_ssd_bwd(TRAIN_BATCH, TRAIN_SEQ, 64, 64, 1, 64, f32, 1e-4, timed=True)
+    for dtype, tol in ((bf, 2e-2), (f32, 1e-4)):
+        check_ssd_bwd(1, 333, 24, 40, 1, 128, dtype, tol)
+        check_ssd_bwd(2, 200, 8, 32, 2, 32, dtype, tol)
+        check_ssd_bwd(1, TRAIN_SEQ, 16, 128, 8, 256, dtype, tol, init=True)
+
     # ---- 3. serve at full width -------------------------------------------
     def serve_full_width(tag, cfg, rng, implied):
         """Serve N_REQUESTS requests of 64-700 prompt tokens (the first 700),
@@ -1005,171 +1133,224 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. train through the volunteer grid at full width -----------------
-    reset_ids()
-    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
-                          n_shards=TRAIN_SHARDS, seed=SEED)
-    t = time.perf_counter()
-    trainer = GridTrainer(cfg, data_cfg, AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=TRAIN_STEPS),
-                          n_steps=TRAIN_STEPS, n_hosts=8, seed=SEED, error_prob=0.05,
-                          malicious_fraction=0.15, availability=0.9)
-    torch.cuda.synchronize()
-    log(f"[5] GridTrainer {cfg.name} (remat={cfg.remat}, compute {cfg.dtype}), {TRAIN_STEPS} steps x "
-        f"{TRAIN_SHARDS} shards x ({TRAIN_BATCH} x {TRAIN_SEQ}) tokens, 8 hosts; set up in "
-        f"{time.perf_counter() - t:.2f} s, memory allocated "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    t = time.perf_counter()
-    r = trainer.run()
-    torch.cuda.synchronize()
-    train_wall = time.perf_counter() - t
-    train_launches = counts()
-    sm = r.metrics
-    credit = sum(v for k, v in r.credit_total.items() if k.startswith("host:"))
-    log(f"[5] losses {r.losses} steps_completed {r.steps_completed} jobs_retried {r.jobs_retried} "
-        f"virtual_time {r.virtual_time}")
-    log(f"[5] SimMetrics wrong_accepted {sm.wrong_accepted} replication_overhead "
-        f"{sm.replication_overhead:.3f} instances_executed {sm.instances_executed}; "
-        f"host credit {credit:.4e} cobblestones")
-    log(f"[5] grad jobs computed {len(trainer.job_seconds)}, wall s each "
-        f"{[round(x, 3) for x in trainer.job_seconds]}; run wall {train_wall:.2f} s; "
-        f"peak_mem_gib {torch.cuda.max_memory_allocated() / 2**30:.2f}")
-    log(f"[5] launches {json.dumps(train_launches)}")
-    if r.steps_completed < TRAIN_STEPS:
-        raise AssertionError(f"grid trainer completed {r.steps_completed} of {TRAIN_STEPS} steps")
-    if not all(math.isfinite(x) for x in r.losses):
-        raise AssertionError(f"non-finite loss: {r.losses}")
-    idle = [k for k in (*ops, *bwd_ops, "quorum_compare") if train_launches[k] == 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on the training path: {idle}")
-
-    # where the device time of one grad job goes
-    batch_np = make_batch(data_cfg, 0, 0)
-    batch = {k: torch.from_numpy(v.astype(np.int64)).to(dev) for k, v in batch_np.items()}
-    grad_step = make_grad_step(cfg)
-    dev_us, job_wall = profile_breakdown(lambda: grad_step(trainer.params, batch), "[5] grad job",
-                                         top=14)
-    check_flash_profile(dev_us, MMA_FLASH, "[5] grad job")
-    busy = sum(dev_us.values())
+    # one grad job's device time by kernel group
     groups = {
         "flash_bwd": lambda k: "flash_bwd" in k,
         "flash_fwd": lambda k: "flash_fwd" in k,
         "cuBLAS": lambda k: any(s in k.lower() for s in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
         "rmsnorm": lambda k: "rmsnorm" in k,
         "swiglu": lambda k: "swiglu" in k,
+        "ssd_scan_bwd": lambda k: any(b in k for b in SSD_BWD_KERNELS),
+        "ssd_scan": lambda k: any(f in k for f in SSD_KERNELS),
     }
-    if busy:
-        shares = {g: sum(us for k, us in dev_us.items() if f(k)) / busy for g, f in groups.items()}
-        shares["other"] = 1.0 - sum(shares.values())
-        log(f"[5] grad job device shares {json.dumps({k: round(v, 4) for k, v in shares.items()})} "
-            f"(busy {busy / 1e3:.2f} ms of {job_wall:.2f} ms wall)")
-    del trainer, grad_step, batch
-    torch.cuda.empty_cache()
 
-    # ---- 6. card (kernels) against CPU (plain versions): one f32 grad step --
-    cfg6 = cfg.scaled(n_layers=2, dtype=torch.float32)
-    p6 = init_params(torch.Generator(device=dev).manual_seed(SEED + 6), model_spec(cfg6), device=dev)
-    toks = rng.integers(0, cfg.vocab, size=(1, 257))
-    b6 = {"tokens": torch.as_tensor(toks[:, :-1]), "labels": torch.as_tensor(toks[:, 1:])}
-    step6 = make_grad_step(cfg6)
-    before = counts()
-    g_card, m_card = step6(p6, {k: v.to(dev) for k, v in b6.items()})
-    torch.cuda.synchronize()
-    after = counts()
-    if any(after[k] <= before[k] for k in ("rmsnorm_bwd", "swiglu_bwd", "flash_attention_bwd")):
-        raise AssertionError("the f32 grad step skipped a backward kernel")
-    f32_launches = {k: after[k] - before[k] for k in after}  # the scalar flash kernels' runs
-    g_cpu, m_cpu = step6(tree_map(lambda x: x.cpu(), p6), b6)
-    loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"]))
-    # per leaf: |card - cpu| <= 1e-3 |cpu| + 1e-4 max|cpu| (f32 sums over 256
-    # tokens and up to 152064 vocabulary rows, in other orders on the two)
-    worst = 0.0
-    for path_leaf, (g_leaf, gp) in enumerate(zip(tree_leaves(g_card), tree_leaves(g_cpu))):
-        g_leaf = g_leaf.cpu()
-        err = (g_leaf - gp).abs()
-        lim = 1e-3 * gp.abs() + 1e-4 * gp.abs().max()
-        if not torch.isfinite(g_leaf).all() or (err > lim).any():
-            raise AssertionError(f"grad leaf {path_leaf} {tuple(gp.shape)}: max abs err "
-                                 f"{err.max().item():.3e} past 1e-3|x| + 1e-4 max|x|")
-        worst = max(worst, (err.max() / gp.abs().max().clamp(min=1e-30)).item())
-        log(f"[6] grad leaf {path_leaf} {str(tuple(gp.shape)):24s} max abs err {err.max().item():.3e} "
-            f"(max |g| {gp.abs().max().item():.3e})")
-    log(f"[6] f32 loss card {float(m_card['loss']):.6f} cpu {float(m_cpu['loss']):.6f} abs err "
-        f"{loss_err:.3e} (tol 1e-4); worst leaf err / max|g| {worst:.3e}")
-    if loss_err > 1e-4:
-        raise AssertionError(f"f32 loss card vs cpu: {loss_err}")
-    del p6, g_card, g_cpu
-    torch.cuda.empty_cache()
+    def job_profile(tag, fn, top=14):
+        """One grad job under torch.profiler: wall, busy, idle share, the top
+        kernels and the shares of ``groups``; returns the per-kernel device
+        microseconds."""
+        dev_us, job_wall = profile_breakdown(fn, f"[{tag}] grad job", top=top)
+        busy = sum(dev_us.values())
+        if busy:
+            shares = {g: sum(us for k, us in dev_us.items() if f(k)) / busy for g, f in groups.items()}
+            shares["other"] = 1.0 - sum(shares.values())
+            log(f"[{tag}] grad job device shares {json.dumps({k: round(v, 4) for k, v in shares.items()})} "
+                f"(busy {busy / 1e3:.2f} ms of {job_wall:.2f} ms wall)")
+        return dev_us
 
-    # ---- 7. the plain training loop with checkpoint and restart -----------
-    loop_data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, n_shards=1,
-                           seed=SEED)
-    loop_opt = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=LOOP_STEPS)
-    n_params = cfg.param_count()
-    ckpt_bytes_want = 3 * 4 * n_params  # params, mu and nu in f32
-    scratch = Path(__file__).resolve().parent / "build"
-    free = shutil.disk_usage(scratch).free
-    log(f"[7] checkpoint of {ckpt_bytes_want / 1e9:.2f} GB to write under {scratch}; "
-        f"{free / 1e9:.2f} GB free")
-    if free < ckpt_bytes_want + 2**30:
-        raise AssertionError(f"not enough free disk for the phase-7 checkpoint: {free} bytes free, "
-                             f"{ckpt_bytes_want} needed and 1 GiB to spare")
-    with tempfile.TemporaryDirectory(dir=scratch, prefix="chip_smoke_ckpt_") as ckpt_dir:
+    def grid_train(tag, cfg, required, idle_kernels):
+        """Train ``cfg`` at full width through ``GridTrainer``: TRAIN_STEPS
+        steps of TRAIN_SHARDS shards x TRAIN_BATCH x TRAIN_SEQ tokens, 8
+        hosts, 5% erroneous, 15% malicious. Every counter is zeroed just
+        before and read just after: each of ``required`` must be non-zero,
+        each of ``idle_kernels`` zero; no wrong gradient may be accepted.
+        Then one grad job under torch.profiler. Returns the run's launches
+        and the profile's per-kernel device microseconds."""
+        reset_ids()
+        data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                              n_shards=TRAIN_SHARDS, seed=SEED)
+        t = time.perf_counter()
+        trainer = GridTrainer(cfg, data_cfg,
+                              AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=TRAIN_STEPS),
+                              n_steps=TRAIN_STEPS, n_hosts=8, seed=SEED, error_prob=0.05,
+                              malicious_fraction=0.15, availability=0.9)
+        torch.cuda.synchronize()
+        log(f"[{tag}] GridTrainer {cfg.name} (remat={cfg.remat}, compute {cfg.dtype}), {TRAIN_STEPS} steps "
+            f"x {TRAIN_SHARDS} shards x ({TRAIN_BATCH} x {TRAIN_SEQ}) tokens, 8 hosts; set up in "
+            f"{time.perf_counter() - t:.2f} s, memory allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
-        r1 = train(cfg, loop_data, loop_opt, LOOP_STEPS, seed=SEED, checkpoint_dir=ckpt_dir,
-                   checkpoint_period=LOOP_PERIOD, log_every=1, log_fn=log)
-        torch.cuda.synchronize()
-        loop_launches = counts()
-        peak7 = torch.cuda.max_memory_allocated() / 2**30
-        step_dir = os.path.join(ckpt_dir, f"step_{LOOP_PERIOD:010d}")
-        ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
-        # where a restore's time goes: the checksums and the npz reads alone
-        # (the files are in the page cache, as they are for the restore)
-        npz = [os.path.join(step_dir, f) for f in sorted(os.listdir(step_dir)) if f.endswith(".npz")]
         t = time.perf_counter()
-        for f in npz:
-            checkpoint_sha256(f)
-        sha_s = time.perf_counter() - t
-        t = time.perf_counter()
-        for f in npz:
-            with np.load(f) as z:
-                for k in z.files:
-                    z[k]
-        read_s = time.perf_counter() - t
-        r2 = train(cfg, loop_data, loop_opt, LOOP_STEPS, seed=SEED + 1, checkpoint_dir=ckpt_dir,
-                   checkpoint_period=LOOP_PERIOD, log_every=1, log_fn=log)
+        r = trainer.run()
         torch.cuda.synchronize()
-        saved = sorted(os.listdir(ckpt_dir))
-    log(f"[7] train {LOOP_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses {r1.losses}; "
-        f"step s {[round(x, 4) for x in r1.step_seconds]}; wall {r1.wall_time:.2f} s; "
-        f"peak_mem_gib {peak7:.2f}")
-    log(f"[7] checkpoint at step {LOOP_PERIOD}: {ckpt_bytes} bytes in {saved}; save s "
-        f"{[round(x, 3) for x in r1.save_seconds]} ({ckpt_bytes / r1.save_seconds[0] / 1e9:.3f} GB/s); "
-        f"restore s {r2.restore_seconds:.3f} ({ckpt_bytes / r2.restore_seconds / 1e9:.3f} GB/s)")
-    log(f"[7] of which, measured alone: sha256 of the files {sha_s:.3f} s, reading the npz arrays "
-        f"{read_s:.3f} s; the rest of the restore (host to device, templates) "
-        f"{r2.restore_seconds - sha_s - read_s:.3f} s, of the save (device to host, np.savez) "
-        f"{r1.save_seconds[0] - sha_s:.3f} s")
-    log(f"[7] launches {json.dumps(loop_launches)}")
-    if saved != [f"step_{LOOP_PERIOD:010d}"] or len(r1.save_seconds) != 1:
-        raise AssertionError(f"expected one checkpoint at step {LOOP_PERIOD}: {saved}, "
-                             f"{len(r1.save_seconds)} saves")
-    if not all(math.isfinite(x) for x in r1.losses) or len(r1.losses) != LOOP_STEPS:
-        raise AssertionError(f"training loop losses: {r1.losses}")
-    idle = [k for k in (*ops, *bwd_ops) if loop_launches[k] == 0]
-    if idle or any(loop_launches[k] for k in ("quorum_compare", "int8_quantize", "int8_dequantize")):
-        raise AssertionError(f"training-loop launches {loop_launches}: idle {idle}")
-    resumed = r2.losses[0] if r2.losses else float("nan")
-    bit_equal = resumed == r1.losses[LOOP_PERIOD]
-    log(f"[7] resumed from step {r2.restored_from}: step {LOOP_PERIOD + 1} loss {resumed!r}, the first "
-        f"run's {r1.losses[LOOP_PERIOD]!r} (rtol 1e-6); bit-equal: {bit_equal}")
-    if r2.restored_from != LOOP_PERIOD or len(r2.losses) != LOOP_STEPS - LOOP_PERIOD or \
-            not math.isclose(resumed, r1.losses[LOOP_PERIOD], rel_tol=1e-6):
-        raise AssertionError(f"resume: restored_from {r2.restored_from}, losses {r2.losses}, "
-                             f"want {r1.losses[LOOP_PERIOD]}")
-    del r1, r2
-    torch.cuda.empty_cache()
+        train_wall = time.perf_counter() - t
+        train_launches = counts()
+        sm = r.metrics
+        credit = sum(v for k, v in r.credit_total.items() if k.startswith("host:"))
+        log(f"[{tag}] losses {r.losses} steps_completed {r.steps_completed} jobs_retried "
+            f"{r.jobs_retried} virtual_time {r.virtual_time}")
+        log(f"[{tag}] SimMetrics wrong_accepted {sm.wrong_accepted} replication_overhead "
+            f"{sm.replication_overhead:.3f} instances_executed {sm.instances_executed}; "
+            f"host credit {credit:.4e} cobblestones")
+        log(f"[{tag}] grad jobs computed {len(trainer.job_seconds)}, wall s each "
+            f"{[round(x, 3) for x in trainer.job_seconds]}; run wall {train_wall:.2f} s; "
+            f"peak_mem_gib {torch.cuda.max_memory_allocated() / 2**30:.2f}")
+        log(f"[{tag}] launches {json.dumps(train_launches)}")
+        if r.steps_completed < TRAIN_STEPS:
+            raise AssertionError(f"grid trainer completed {r.steps_completed} of {TRAIN_STEPS} steps")
+        if not all(math.isfinite(x) for x in r.losses):
+            raise AssertionError(f"non-finite loss: {r.losses}")
+        if sm.wrong_accepted:
+            raise AssertionError(f"the grid accepted {sm.wrong_accepted} wrong gradients")
+        idle = [k for k in required if train_launches[k] == 0]
+        stray = {k: train_launches[k] for k in idle_kernels if train_launches[k]}
+        if idle or stray:
+            raise AssertionError(f"training path: kernels never launched {idle}, launched where none "
+                                 f"should be {stray}")
+
+        # where the device time of one grad job goes
+        batch_np = make_batch(data_cfg, 0, 0)
+        batch = {k: torch.from_numpy(v.astype(np.int64)).to(dev) for k, v in batch_np.items()}
+        grad_step = make_grad_step(cfg)
+        dev_us = job_profile(tag, lambda: grad_step(trainer.params, batch))
+        del trainer, grad_step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        return train_launches, dev_us
+
+    train_launches, dev_us = grid_train("5", cfg, (*ops, *bwd_ops, "quorum_compare"),
+                                        ("ssd_scan", "ssd_scan_bwd"))
+    check_flash_profile(dev_us, MMA_FLASH, "[5] grad job")
+
+    # ---- 6. card (kernels) against CPU (plain versions): one f32 grad step --
+    def grad_card_vs_cpu(tag, cfg32, required_bwd, seed, leaf_rtol=1e-3, leaf_atol=1e-4):
+        """One f32 grad step of ``cfg32`` on 1 x 256 tokens on the card
+        (each of ``required_bwd`` launched) against the CPU's from the same
+        parameters: the loss to 1e-4 and per leaf |card - cpu| <= 1e-3 |cpu|
+        + leaf_atol max|cpu| with leaf_rtol = 1e-3. Returns the step's launches."""
+        p32 = init_params(torch.Generator(device=dev).manual_seed(seed), model_spec(cfg32), device=dev)
+        toks = rng.integers(0, cfg32.vocab, size=(1, 257))
+        b32 = {"tokens": torch.as_tensor(toks[:, :-1]), "labels": torch.as_tensor(toks[:, 1:])}
+        step32 = make_grad_step(cfg32)
+        before = counts()
+        g_card, m_card = step32(p32, {k: v.to(dev) for k, v in b32.items()})
+        torch.cuda.synchronize()
+        after = counts()
+        if any(after[k] <= before[k] for k in required_bwd):
+            raise AssertionError(f"the f32 grad step of {cfg32.name} skipped a backward kernel: "
+                                 f"{[k for k in required_bwd if after[k] <= before[k]]}")
+        step_launches = {k: after[k] - before[k] for k in after}
+        g_cpu, m_cpu = step32(tree_map(lambda x: x.cpu(), p32), b32)
+        loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+        # per leaf: |card - cpu| <= leaf_rtol |cpu| + leaf_atol max|cpu| (f32 sums over
+        # 256 tokens and up to 152064 vocabulary rows, in other orders on the two)
+        worst, bad = 0.0, []
+        for path_leaf, (g_leaf, gp) in enumerate(zip(tree_leaves(g_card), tree_leaves(g_cpu))):
+            g_leaf = g_leaf.cpu()
+            err = (g_leaf - gp).abs()
+            lim = leaf_rtol * gp.abs() + leaf_atol * gp.abs().max()
+            if not torch.isfinite(g_leaf).all() or (err > lim).any():
+                bad.append(path_leaf)
+            worst = max(worst, (err.max() / gp.abs().max().clamp(min=1e-30)).item())
+            log(f"[{tag}] grad leaf {path_leaf} {str(tuple(gp.shape)):24s} max abs err "
+                f"{err.max().item():.3e} (max |g| {gp.abs().max().item():.3e})")
+        if bad:
+            raise AssertionError(f"{cfg32.name} grad leaves {bad}: past {leaf_rtol}|x| + {leaf_atol} max|x|")
+        log(f"[{tag}] {cfg32.name} ({cfg32.n_layers} layers) f32 loss card {float(m_card['loss']):.6f} cpu "
+            f"{float(m_cpu['loss']):.6f} abs err {loss_err:.3e} (tol 1e-4); worst leaf err / max|g| "
+            f"{worst:.3e}")
+        if loss_err > 1e-4:
+            raise AssertionError(f"{cfg32.name} f32 loss card vs cpu: {loss_err}")
+        del p32, g_card, g_cpu
+        torch.cuda.empty_cache()
+        return step_launches
+
+    # the scalar flash kernels' runs
+    f32_launches = grad_card_vs_cpu("6", cfg.scaled(n_layers=2, dtype=torch.float32),
+                                    ("rmsnorm_bwd", "swiglu_bwd", "flash_attention_bwd"), SEED + 6)
+
+    # ---- 7. the plain training loop with checkpoint and restart -----------
+    def train_loop(tag, cfg, required, idle_kernels):
+        """``runtime.train`` of ``cfg`` at full width: LOOP_STEPS steps of
+        TRAIN_BATCH x TRAIN_SEQ tokens with a checkpoint at step LOOP_PERIOD
+        under ``build/`` (after checking the free disk), then a second call
+        that restores it and reruns the next step: its loss must equal the
+        first run's. Counters zeroed before the first call and read after
+        it: each of ``required`` non-zero, each of ``idle_kernels`` zero.
+        Returns the first call's launches."""
+        loop_data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, n_shards=1,
+                               seed=SEED)
+        loop_opt = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=LOOP_STEPS)
+        ckpt_bytes_want = 3 * 4 * cfg.param_count()  # params, mu and nu in f32
+        scratch = Path(__file__).resolve().parent / "build"
+        free = shutil.disk_usage(scratch).free
+        log(f"[{tag}] checkpoint of {ckpt_bytes_want / 1e9:.2f} GB to write under {scratch}; "
+            f"{free / 1e9:.2f} GB free")
+        if free < ckpt_bytes_want + 2**30:
+            raise AssertionError(f"not enough free disk for the phase-{tag} checkpoint: {free} bytes "
+                                 f"free, {ckpt_bytes_want} needed and 1 GiB to spare")
+        with tempfile.TemporaryDirectory(dir=scratch, prefix="chip_smoke_ckpt_") as ckpt_dir:
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            r1 = train(cfg, loop_data, loop_opt, LOOP_STEPS, seed=SEED, checkpoint_dir=ckpt_dir,
+                       checkpoint_period=LOOP_PERIOD, log_every=1, log_fn=log)
+            torch.cuda.synchronize()
+            loop_launches = counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            step_dir = os.path.join(ckpt_dir, f"step_{LOOP_PERIOD:010d}")
+            ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+            # where a restore's time goes: the checksums and the npz reads alone
+            # (the files are in the page cache, as they are for the restore)
+            npz = [os.path.join(step_dir, f) for f in sorted(os.listdir(step_dir)) if f.endswith(".npz")]
+            t = time.perf_counter()
+            for f in npz:
+                checkpoint_sha256(f)
+            sha_s = time.perf_counter() - t
+            t = time.perf_counter()
+            for f in npz:
+                with np.load(f) as z:
+                    for k in z.files:
+                        z[k]
+            read_s = time.perf_counter() - t
+            r2 = train(cfg, loop_data, loop_opt, LOOP_STEPS, seed=SEED + 1, checkpoint_dir=ckpt_dir,
+                       checkpoint_period=LOOP_PERIOD, log_every=1, log_fn=log)
+            torch.cuda.synchronize()
+            saved = sorted(os.listdir(ckpt_dir))
+        log(f"[{tag}] {cfg.name} train {LOOP_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses "
+            f"{r1.losses}; step s {[round(x, 4) for x in r1.step_seconds]}; wall {r1.wall_time:.2f} s; "
+            f"peak_mem_gib {peak:.2f}")
+        log(f"[{tag}] checkpoint at step {LOOP_PERIOD}: {ckpt_bytes} bytes in {saved}; save s "
+            f"{[round(x, 3) for x in r1.save_seconds]} ({ckpt_bytes / r1.save_seconds[0] / 1e9:.3f} GB/s); "
+            f"restore s {r2.restore_seconds:.3f} ({ckpt_bytes / r2.restore_seconds / 1e9:.3f} GB/s)")
+        log(f"[{tag}] of which, measured alone: sha256 of the files {sha_s:.3f} s, reading the npz "
+            f"arrays {read_s:.3f} s; the rest of the restore (host to device, templates) "
+            f"{r2.restore_seconds - sha_s - read_s:.3f} s, of the save (device to host, np.savez) "
+            f"{r1.save_seconds[0] - sha_s:.3f} s")
+        log(f"[{tag}] launches {json.dumps(loop_launches)}")
+        if saved != [f"step_{LOOP_PERIOD:010d}"] or len(r1.save_seconds) != 1:
+            raise AssertionError(f"expected one checkpoint at step {LOOP_PERIOD}: {saved}, "
+                                 f"{len(r1.save_seconds)} saves")
+        if not all(math.isfinite(x) for x in r1.losses) or len(r1.losses) != LOOP_STEPS:
+            raise AssertionError(f"training loop losses: {r1.losses}")
+        idle = [k for k in required if loop_launches[k] == 0]
+        if idle or any(loop_launches[k] for k in idle_kernels):
+            raise AssertionError(f"training-loop launches {loop_launches}: idle {idle}")
+        resumed = r2.losses[0] if r2.losses else float("nan")
+        bit_equal = resumed == r1.losses[LOOP_PERIOD]
+        log(f"[{tag}] resumed from step {r2.restored_from}: step {LOOP_PERIOD + 1} loss {resumed!r}, the "
+            f"first run's {r1.losses[LOOP_PERIOD]!r} (rtol 1e-6); bit-equal: {bit_equal}")
+        if r2.restored_from != LOOP_PERIOD or len(r2.losses) != LOOP_STEPS - LOOP_PERIOD or \
+                not math.isclose(resumed, r1.losses[LOOP_PERIOD], rel_tol=1e-6):
+            raise AssertionError(f"resume: restored_from {r2.restored_from}, losses {r2.losses}, "
+                                 f"want {r1.losses[LOOP_PERIOD]}")
+        del r1, r2
+        torch.cuda.empty_cache()
+        return loop_launches
+
+    loop_launches = train_loop("7", cfg, (*ops, *bwd_ops),
+                               ("quorum_compare", "int8_quantize", "int8_dequantize"))
+    loop_data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, n_shards=1,
+                           seed=SEED)
 
     # ---- 8. the int8 wire format on the full-width gradient tree -----------
     params = init_params(gen, model_spec(cfg), device=dev)
@@ -1268,6 +1449,58 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # ---- 13. train mamba2-130m through the volunteer grid at full width ----
+    ssd_train = ("rmsnorm", "rmsnorm_bwd", "ssd_scan", "ssd_scan_bwd")
+    log(f"[13] {mcfg.name} at full width: {Lm} layers, remat={mcfg.remat}")
+    mamba_train_launches, dev_us = grid_train(
+        "13", mcfg, (*ssd_train, "quorum_compare"),
+        ("flash_attention", "flash_attention_bwd", "swiglu", "swiglu_bwd"))
+    check_ssd_bwd_profile(dev_us, "[13] grad job")
+    check_ssd_profile(dev_us, True, "[13] grad job")
+
+    # ---- 14. card (kernels) against CPU (plain versions): f32 grad steps ---
+    rng = np.random.default_rng(SEED + 14)
+    # each leaf to 1e-3 of its largest entry
+    grad_card_vs_cpu("14", mcfg.scaled(n_layers=2, dtype=torch.float32), ("rmsnorm_bwd", "ssd_scan_bwd"),
+                     SEED + 14, leaf_rtol=0.0, leaf_atol=1e-3)
+    grad_card_vs_cpu("14", zcfg.scaled(n_layers=per + tail, dtype=torch.float32),
+                     ("rmsnorm_bwd", "swiglu_bwd", "flash_attention_bwd", "ssd_scan_bwd"), SEED + 15,
+                     leaf_rtol=0.0, leaf_atol=1e-3)
+
+    # ---- 15. train mamba2-130m through the plain training loop -------------
+    mamba_loop_launches = train_loop("15", mcfg, ssd_train,
+                                     ("flash_attention", "flash_attention_bwd", "swiglu", "swiglu_bwd",
+                                      "quorum_compare", "int8_quantize", "int8_dequantize"))
+
+    # ---- 16. one zamba2-1.2b grad job at full width -------------------------
+    params = init_params(gen, model_spec(zcfg), device=dev)
+    zdata = DataConfig(vocab=zcfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, n_shards=1, seed=SEED)
+    batch = {k: torch.from_numpy(v.astype(np.int64)).to(dev) for k, v in make_batch(zdata, 0, 0).items()}
+    zgrad = make_grad_step(zcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t = time.perf_counter()
+    zgrads, zm = zgrad(params, batch)
+    zloss = float(zm["loss"])
+    zjob_s = time.perf_counter() - t
+    zamba_train_launches = counts()
+    log(f"[16] {zcfg.name} grad job at full width ({Lz} layers, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"remat={zcfg.remat}): loss {zloss:.6f}, wall {zjob_s:.3f} s (the first: allocator), peak_mem_gib "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f}; launches {json.dumps(zamba_train_launches)}")
+    want16 = ("rmsnorm", "rmsnorm_bwd", "swiglu", "swiglu_bwd", "flash_attention", "flash_attention_bwd",
+              "ssd_scan", "ssd_scan_bwd")
+    idle16 = [k for k in want16 if zamba_train_launches[k] == 0]
+    if idle16 or not math.isfinite(zloss) or not all(torch.isfinite(g).all() for g in tree_leaves(zgrads)):
+        raise AssertionError(f"zamba2 grad job: kernels never launched {idle16}, loss {zloss}")
+    del zgrads
+    dev_us = job_profile("16", lambda: zgrad(params, batch))
+    check_ssd_bwd_profile(dev_us, "[16] grad job")
+    check_flash_profile(dev_us, MMA_FLASH, "[16] grad job")
+    del params, batch, zgrad
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- result lines ------------------------------------------------------
     replaces = {
         "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:17",
@@ -1277,6 +1510,7 @@ def main() -> int:
         "int8_quantize": "src/repro/kernels/int8_quant/kernel.py:19",
         "int8_dequantize": "src/repro/kernels/int8_quant/kernel.py:28",
         "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:26",
+        "ssd_scan_bwd": "src/repro/kernels/ssd_scan/kernel.py:26",
         # no TPU backward kernels: the reference differentiates its jnp
         # functions with XLA; each row names the forward TPU kernel
         "rmsnorm_bwd": "src/repro/kernels/rmsnorm/kernel.py:17",
@@ -1290,6 +1524,7 @@ def main() -> int:
     main_launches = {**train_launches, "int8_quantize": comp_launches["int8_quantize"],
                      "int8_dequantize": comp_launches["int8_dequantize"],
                      "ssd_scan": mamba_launches["ssd_scan"],
+                     "ssd_scan_bwd": mamba_train_launches["ssd_scan_bwd"],
                      # f32 rows: the f32 grad step's launches (phase 6)
                      "flash_attention_f32": f32_launches["flash_attention"],
                      "flash_attention_bwd_f32": f32_launches["flash_attention_bwd"]}
@@ -1316,6 +1551,18 @@ def main() -> int:
         if name == "ssd_scan":
             row["launches_serve"] = mamba_launches[name]
             row["launches_serve_zamba2"] = zamba_launches[name]
+            row["launches_train"] = mamba_train_launches[name]
+            row["launches_train_loop"] = mamba_loop_launches[name]
+            row["launches_train_zamba2"] = zamba_train_launches[name]
+        if name == "ssd_scan_bwd":
+            # launches: the mamba2 grid run's (phase 13)
+            row["launches_train_loop"] = mamba_loop_launches[name]
+            row["launches_train_zamba2"] = zamba_train_launches[name]
+            row["f32"] = {k: ssd_bwd_f32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+            row["zamba2"] = {k: ssd_bwd_zamba2[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                            "bound_by", "max_abs_err")}
+            row["zamba2_f32"] = {k: ssd_bwd_zamba2_f32[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                    "bound_by")}
         kernels.append(row)
     log(smi)
     log(json.dumps({"kernels": kernels}))

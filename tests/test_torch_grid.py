@@ -13,7 +13,13 @@
   error, 15% malicious, 90% availability), at f32 from the reference's
   initial parameters: steps, every ``SimMetrics`` field, credit, retries and
   virtual time identical; losses to rtol 1e-5 (measured max abs difference
-  9.5e-7 on losses near 6).
+  9.5e-7 on losses near 6). The same run for ``mamba2-smoke`` (2 layers,
+  d = 64, N = 16, heads of 16) at f32, its SSD scans differentiated through
+  the ``ssd_scan`` op: everything identical, losses to rtol 1e-5.
+
+Marked ``gpu``: the seeded 4-step run of the qwen3 and mamba2 smoke configs
+on the card against the CPU (the mamba2 run through the ssd_scan backward
+kernels).
 """
 import dataclasses
 import random
@@ -41,6 +47,7 @@ from repro_torch.runtime import GridTrainer, grid_runtime  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-6  # grad_comparator's defaults in both packages
 LOSS_RTOL = 1e-5
+STEPS_SSM = 12
 
 
 def _boundary_leaf(seed):
@@ -140,9 +147,17 @@ def test_trainer_runs_on_the_card_unless_asked():
         GridTrainer(cfg, DataConfig(vocab=cfg.vocab, seq_len=8, batch_size=1), AdamWConfig(), n_steps=1)
 
 
-def _run_both(steps):
+def _smoke(module, arch):
+    """The smoke config of ``arch`` at f32; qwen3 cut to 2 layers at d = 64."""
+    dtype = jnp.float32 if module is j_get_smoke_config else torch.float32
+    if arch == "qwen3-0.6b":
+        return module(arch).scaled(n_layers=2, d_model=64, dtype=dtype)
+    return module(arch).scaled(dtype=dtype)
+
+
+def _run_both(steps, arch="qwen3-0.6b"):
     j_reset_ids()
-    jcfg = j_get_smoke_config("qwen3-0.6b").scaled(n_layers=2, d_model=64, dtype=jnp.float32)
+    jcfg = _smoke(j_get_smoke_config, arch)
     kw = dict(n_steps=steps, n_hosts=8, seed=0, adaptive_replication=True, error_prob=0.05,
               malicious_fraction=0.15, availability=0.9)
     jt = JGridTrainer(jcfg, JDataConfig(vocab=jcfg.vocab, seq_len=64, batch_size=4, n_shards=2, seed=3),
@@ -150,31 +165,42 @@ def _run_both(steps):
     params = jax.tree_util.tree_map(np.asarray, jt.params)  # exists before run()
     want = jt.run()
     reset_ids()
-    tcfg = get_smoke_config("qwen3-0.6b").scaled(n_layers=2, d_model=64, dtype=torch.float32)
+    tcfg = _smoke(get_smoke_config, arch)
     tt = GridTrainer(tcfg, DataConfig(vocab=tcfg.vocab, seq_len=64, batch_size=4, n_shards=2, seed=3),
                      AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=40),
                      params=params_from_jax(params, "cpu"), device="cpu", **kw)
     return tt.run(), want
 
 
-def test_grid_run_matches_reference():
-    got, want = _run_both(12)
-    assert got.steps_completed == want.steps_completed == 12
+def _assert_same_run(got, want, steps, loss_rtol):
+    assert got.steps_completed == want.steps_completed == steps
     assert dataclasses.asdict(got.metrics) == dataclasses.asdict(want.metrics)
     assert got.metrics.wrong_accepted == 0
     assert got.credit_total == want.credit_total
     assert got.jobs_retried == want.jobs_retried
     assert got.virtual_time == want.virtual_time
-    np.testing.assert_allclose(got.losses, want.losses, rtol=LOSS_RTOL, atol=0)
+    np.testing.assert_allclose(got.losses, want.losses, rtol=loss_rtol, atol=0)
+
+
+def test_grid_run_matches_reference():
+    got, want = _run_both(12)
+    _assert_same_run(got, want, 12, LOSS_RTOL)
     assert got.final_loss < got.losses[0]
 
 
-@pytest.mark.gpu
-def test_grid_run_on_the_card_matches_the_cpu():
+def test_ssm_grid_run_matches_reference():
+    got, want = _run_both(STEPS_SSM, "mamba2-130m")
+    _assert_same_run(got, want, STEPS_SSM, LOSS_RTOL)
+    assert got.final_loss < got.losses[0]
+
+
+def _runs_on_cpu_and_card(cfg, counter):
+    """The same seeded 4-step grid run of ``cfg`` on the CPU and on the card,
+    from the same parameters; ``counter()`` (a launch count) must move on
+    the card only."""
     if not torch.cuda.is_available() or torch.cuda.get_device_capability(0) < (9, 0):
         pytest.skip("no CUDA card of capability 9.0: the kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_smoke_config("qwen3-0.6b").scaled(n_layers=2, d_model=64, dtype=torch.float32)
     runs = []
     for device in ("cpu", "cuda"):
         reset_ids()
@@ -184,10 +210,22 @@ def test_grid_run_on_the_card_matches_the_cpu():
                         AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=40), n_steps=4, n_hosts=8,
                         seed=0, error_prob=0.05, malicious_fraction=0.15, availability=0.9,
                         params=params, device=device)
-        launches = quorum_ops.launches
+        launches = counter()
         runs.append(t.run())
-        assert (quorum_ops.launches > launches) == (device == "cuda")
+        assert (counter() > launches) == (device == "cuda")
     cpu, card = runs
     assert card.steps_completed == cpu.steps_completed == 4
     assert dataclasses.asdict(card.metrics) == dataclasses.asdict(cpu.metrics)
     np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_grid_run_on_the_card_matches_the_cpu():
+    _runs_on_cpu_and_card(_smoke(get_smoke_config, "qwen3-0.6b"), lambda: quorum_ops.launches)
+
+
+@pytest.mark.gpu
+def test_ssm_grid_run_on_the_card_matches_the_cpu():
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    _runs_on_cpu_and_card(_smoke(get_smoke_config, "mamba2-130m"), lambda: ssd_ops.launches_bwd)

@@ -17,7 +17,8 @@ Held here: ``_causal_conv``, ``mamba2_forward`` with and without a state,
 decode, logits and every cache leaf; decode against the full forward;
 greedy ``BatchServer`` token streams; one f32 gradient step; the cache
 layout; and the serving loop's parameter dtypes and slot merge on the
-nested (groups, layers, batch, ...) cache.
+nested (groups, layers, batch, ...) cache. Marked ``gpu``: the f32 gradient
+step on the card (the ssd_scan backward kernels) against the CPU's.
 """
 import numpy as np
 import pytest
@@ -59,7 +60,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def _np(x):
-    return np.asarray(x.detach().float() if isinstance(x, torch.Tensor) else x, np.float32)
+    return np.asarray(x.detach().float().cpu() if isinstance(x, torch.Tensor) else x, np.float32)
 
 
 def _flatten(tree, prefix=""):
@@ -333,6 +334,31 @@ def test_grad_step_matches_reference(arch):
         assert g.shape == w.shape, key
         w = np.asarray(w)
         np.testing.assert_allclose(_np(g), w, rtol=1e-3, atol=5e-4 * np.abs(w).max(), err_msg=key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ARCHS)
+def test_grad_step_on_the_card_matches_the_cpu(arch):
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability(0) < (9, 0):
+        pytest.skip("no CUDA card of capability 9.0: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    _, t_cfg, _, params = _setup(arch)
+    t_cfg = t_cfg.scaled(remat=True)
+    toks = np.random.default_rng(8).integers(0, t_cfg.vocab, size=(2, 65))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1]), "labels": torch.as_tensor(toks[:, 1:])}
+    step = make_grad_step(t_cfg)
+    cpu_grads, cpu_m = step(params, batch)
+    before = ssd_ops.launches_bwd
+    grads, m = step(tree_map(lambda t: t.cuda(), params), {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert ssd_ops.launches_bwd - before == t_cfg.n_layers  # one backward per mamba layer
+    np.testing.assert_allclose(_np(m["loss"]), _np(cpu_m["loss"]), rtol=1e-5)
+    # each leaf to 1e-3 of its largest entry
+    for (key, g), (_, w) in zip(sorted(_flatten(grads).items()), sorted(_flatten(cpu_grads).items())):
+        w = _np(w)
+        np.testing.assert_allclose(_np(g), w, rtol=0, atol=1e-3 * np.abs(w).max(), err_msg=key)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,10 @@ scenario):
   10, and the reference resumes from the port's: each gives the reference's
   own resumed losses to rtol 1e-5;
 * the elastic restart scenario (checkpoint, shrink the mesh plan, resume)
-  on the port, with the port's ``plan_elastic_config``.
+  on the port, with the port's ``plan_elastic_config``;
+* ``mamba2-smoke`` at f32 on the same data and optimizer: 4 steps of each
+  package's ``train`` from the reference's initial parameters, losses to
+  rtol 1e-5.
 """
 import os
 import shutil
@@ -124,3 +127,15 @@ def test_train_defaults_to_the_card():
     cfg = get_smoke_config("qwen3-0.6b").scaled(**SCALE)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train(cfg, DataConfig(vocab=cfg.vocab, **DATA), AdamWConfig(**OPT), steps=1, log_every=0)
+
+
+def test_ssm_losses_match_reference():
+    jc = j_get_smoke_config("mamba2-130m").scaled(dtype=jnp.float32)
+    tc = get_smoke_config("mamba2-130m").scaled(dtype=torch.float32)
+    want = j_train(jc, JDataConfig(vocab=jc.vocab, **DATA), JAdamWConfig(**OPT), steps=4, log_every=0)
+    init = jax.tree_util.tree_map(np.array, j_init_params(jax.random.PRNGKey(0), j_model_spec(jc)))
+    got = train(tc, DataConfig(vocab=tc.vocab, **DATA), AdamWConfig(**OPT), steps=4, log_every=0,
+                params=init, device="cpu")
+    assert got.steps == 4 and len(got.losses) == 4
+    np.testing.assert_allclose(got.losses, want.losses, rtol=LOSS_RTOL)
+    assert got.final_loss < got.losses[0]
