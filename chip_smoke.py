@@ -35,9 +35,13 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    projection and rows that are not 16-byte aligned (the 2-byte staging),
    forward and backward; in f32 (the scalar kernels) at the training shape
    and two small ones; past D = 128 (the kD = 256 kernels) at D = 256 and a
-   D = 192 padded to 256, in bf16 and f32, forward and backward. Each flash row names the kernels the profiler saw
-   (mma for bf16, scalar for f32), and every backward is run twice more on
-   the same inputs and must give the same bits. quorum_compare
+   D = 192 padded to 256, in bf16 and f32, forward and backward; past
+   D = 256 (the wide-D kernels, rows of their own with 0 launches on every
+   main path) at (1, 2048, 8/4, 512), a ragged D = 257 and D = 320, in both
+   types, forward and backward, SDPA the library time. Each flash row names
+   the kernels the profiler saw (mma for bf16, scalar for f32, wide past
+   D = 256), and every backward is run twice more on the same inputs and
+   must give the same bits. quorum_compare
    also runs through the grid trainer's comparator on NaN and inf leaves.
    The int8 quantize and dequantize kernels are held bit for bit (codes,
    scales, and dequantized values at f32 and bf16) at the embedding
@@ -49,14 +53,19 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    sequential oracle at the reference test's size to 3e-4; at the two
    prefill shapes the profiler splits a call's time between its three
    kernels. No single PyTorch call computes the SSD scan either. The
-   ssd_scan backward (six launches a call) is held against its plain
-   version and against autograd of the plain forward, each gradient to 1e-4
-   (f32) or 2e-2 (bf16) of its leaf's largest entry, at the mamba2-130m and
-   zamba2-1.2b training shapes (2 x 2048 tokens), a ragged (1, 333, 24, 40),
-   two groups and (1, 2048, 16, 128) N = 256 in 8 groups with an initial
-   state and a final-state gradient, in bf16 and f32; every call is run
-   twice more and must give the same bits; at the training shapes its time
-   is split by kernel beside the plain version's and the bound.
+   ssd_scan backward is held against its plain version and against
+   autograd of the plain forward, each gradient to 1e-4 (f32) or 2e-2
+   (bf16, and its worst to 1e-2) of its leaf's largest entry, at the
+   mamba2-130m and zamba2-1.2b training shapes (2 x 2048 tokens), a ragged
+   (1, 333, 24, 40), two groups, N = 30 in 8 groups, and (1, 2048, 16, 128)
+   N = 256 in 8 groups with an initial state and a final-state gradient, in
+   bf16 and f32, as the main path calls it (the forward's states given:
+   four launches, no rerun of the forward's kernels, by the profile's
+   launch counts) and standalone (the states recomputed: six launches); the
+   two routes must give the same bits, every call repeated must too, and
+   neither may allocate per-head (B, S, H, N) shares. At the training
+   shapes both routes' times are split by kernel beside the plain
+   version's and the bound.
 3. Serve qwen3-0.6b at full width (28 layers, random weights from a seeded
    generator, bf16 compute) through ``BatchServer``: 8 ragged requests of
    64-700 prompt tokens, 32 new tokens each, EDF deadlines. Every kernel
@@ -109,8 +118,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 13. Train mamba2-130m at full width through ``GridTrainer`` with phase 5's
     settings; counters zeroed before and read after: ssd_scan and rmsnorm,
     forward and backward, and quorum_compare non-zero, flash and swiglu
-    none; 0 wrong accepted. One grad job profiled: it must show the ssd_scan
-    backward's kernels.
+    none; 0 wrong accepted. One grad job profiled (busy time, idle share,
+    the ssd_scan backward's time and the job's peak memory): it must show
+    the ssd_scan backward's kernels, and the forward's chunk-state kernel
+    no more often than the launch counter's forward calls (no rerun in the
+    backward).
 14. Phase 6's f32 card-against-CPU grad step for mamba2-130m at its full
     widths with 2 layers and zamba2-1.2b with 8 (one group and the tail):
     the loss to 1e-4, each leaf to 1e-3 of its largest entry.
@@ -118,7 +130,9 @@ Phases, in order; the first failure ends the run with a non-zero exit:
     checkpoint), the resumed loss equal to the first run's.
 16. One zamba2-1.2b grad job at full width (38 layers, 2 x 2048 tokens)
     through ``make_grad_step``: ssd_scan, rmsnorm, flash_attention and
-    swiglu, forward and backward, all launched; profiled.
+    swiglu, forward and backward, all launched; profiled as phase 13's.
+Every main path (phases 3, 5, 7, 9, 11, 13, 15, 16) must launch no
+wide-D flash kernel.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
 numbers of this run (``launches``: the counts of the grid training run
@@ -131,7 +145,8 @@ training loop's, where the kernel runs there, and for ssd_scan
 ``launches_serve_zamba2``, phase 11's, and ``launches_train``,
 ``launches_train_loop`` and ``launches_train_zamba2``, phases 13, 15 and
 16's; ``ssd_scan_bwd``'s ``launches`` are phase 13's, and its row carries
-its f32 and zamba2-shape times; ``kernel`` on the flash rows); the last line is
+its standalone time and its f32 and zamba2-shape times; the wide-D flash
+rows' are phase 5's, 0; ``kernel`` on the flash rows); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA card, or without the repository's ``src/`` beside it, the
 script exits non-zero and prints no result.
@@ -209,12 +224,13 @@ def queued_event_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled(fn, iters: int = 1):
+def profiled(fn, iters: int = 1, calls: dict | None = None):
     """Run ``fn`` ``iters`` times under torch.profiler; return the device
     microseconds per kernel name (device-side events only: a CPU op's device
-    time repeats its kernels') and the wall milliseconds. A session in which
-    CUPTI delivered no kernel record is run again, up to PROFILER_ATTEMPTS
-    times; after that the dict is empty."""
+    time repeats its kernels') and the wall milliseconds; ``calls``, when
+    given, takes each kernel's number of launches. A session in which CUPTI
+    delivered no kernel record is run again, up to PROFILER_ATTEMPTS times;
+    after that the dict is empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -225,9 +241,12 @@ def profiled(fn, iters: int = 1):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
-        dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type.name == "CUDA" and e.self_device_time_total > 0}
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+        dev_us = {e.key: e.self_device_time_total for e in events}
         if dev_us:
+            if calls is not None:
+                calls.update({e.key: e.count for e in events})
             return dev_us, wall_ms
         log(f"torch.profiler recorded no device time (attempt {attempt} of {PROFILER_ATTEMPTS})")
     return {}, wall_ms
@@ -260,9 +279,14 @@ MMA_FLASH = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkdv_
 # the single-block kernel they replaced, which no profile may show
 SSD_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_output_kernel")
 OLD_SSD = "ssd_scan_kernel"
-# one ssd_scan backward call: the two state kernels again (forwards, then in
-# reverse on dy and C), then these two
-SSD_BWD_KERNELS = ("ssd_chunk_bwd_kernel", "ssd_bwd_reduce_kernel")
+# one ssd_scan backward call on the main path (the forward's states kept):
+# the chunk-state sums on dy and C, the pass in reverse, the chunk kernel and
+# the fixed-order sums; the standalone route first reruns SSD_KERNELS[:2]
+SSD_BWD_KERNELS = ("ssd_chunk_grad_state_kernel", "ssd_state_grad_pass_kernel",
+                   "ssd_chunk_bwd_kernel", "ssd_bwd_reduce_kernel")
+# the flash kernels past D = 256 (both types): the forward; Delta, dQ, dK/dV
+WIDE_FLASH = ("flash_fwd_wide_kernel",)
+WIDE_FLASH_BWD = ("flash_bwd_delta_kernel", "flash_bwd_dq_wide_kernel", "flash_bwd_dkdv_wide_kernel")
 
 
 def short_kernel_names(dev_us) -> list:
@@ -367,26 +391,42 @@ def check_ssd_profile(dev_us, want: bool, label: str) -> None:
         log(f"{label}: ssd_scan kernels in the profile {[n for n in names if n.startswith('ssd')]}")
 
 
-def check_ssd_bwd_profile(dev_us, label: str) -> None:
-    """In a profile: the ssd_scan backward's own kernels ran, and the two
-    state kernels it reruns. A profile with no records is not checked, which
-    the log says."""
+def check_ssd_bwd_profile(dev_us, label: str, calls: dict | None = None, forwards: int = 0,
+                          standalone: bool = False) -> None:
+    """In a profile: the ssd_scan backward's kernels ran. ``standalone``
+    (no states given): the forward's chunk-state kernel and pass ran before
+    them. Else, with ``calls`` (each kernel's launches in the profile): the
+    forward's chunk-state kernel ran no more often than the ``forwards``
+    forward calls that the launch counter saw in the same window, so no
+    backward call reran it on (x, B) (a rerun adds one a backward call; a
+    record the profiler lost only lowers the count). A profile with no
+    records is not checked, which the log says."""
     if not dev_us:
         log(f"{label}: ssd_scan backward kernel names not checked (the profiler recorded nothing)")
         return
     names = [n.split("<")[0] for n in short_kernel_names(dev_us)]
-    missing = [k for k in (*SSD_BWD_KERNELS, *SSD_KERNELS[:2]) if k not in names]
+    want = (*SSD_BWD_KERNELS, *SSD_KERNELS[:2]) if standalone else SSD_BWD_KERNELS
+    missing = [k for k in want if k not in names]
     if missing:
         raise AssertionError(f"{label}: kernels {names}: ssd_scan backward kernels missing {missing}")
+    if not standalone and calls is not None:
+        launched = {k: sum(n for key, n in calls.items()
+                           if (short_kernel_names({key: 1}) or ["?"])[0].split("<")[0] == k)
+                    for k in (SSD_KERNELS[0], SSD_BWD_KERNELS[2])}
+        if launched[SSD_KERNELS[0]] > forwards:
+            raise AssertionError(f"{label}: launches {launched} for {forwards} forward calls: the "
+                                 f"backward reran the forward's chunk-state kernel")
+        log(f"{label}: launches {json.dumps(launched)} for {forwards} forward calls: no rerun of the "
+            f"forward's chunk-state kernel in the backward")
     log(f"{label}: ssd_scan kernels in the profile {[n for n in names if n.startswith('ssd')]}")
 
 
-def profile_breakdown(fn, label: str, top: int = 10):
+def profile_breakdown(fn, label: str, top: int = 10, calls: dict | None = None):
     """Run ``fn`` once under torch.profiler; print wall, device-busy and idle
     share and the ``top`` kernels by device time; return the per-kernel
     device microseconds (empty where the profiler recorded none) and the
-    wall milliseconds."""
-    dev_us, wall_ms = profiled(fn)
+    wall milliseconds (``calls`` as ``profiled``'s)."""
+    dev_us, wall_ms = profiled(fn, calls=calls)
     if not dev_us:
         log(f"profile {label}: wall_ms {wall_ms:.3f}; device busy and idle share not measured")
         return dev_us, wall_ms
@@ -437,13 +477,16 @@ def main() -> int:
     bwd_ops = {"rmsnorm_bwd": rms_ops, "swiglu_bwd": swiglu_ops, "flash_attention_bwd": flash_ops}
 
     fwd_ops = {**ops, "ssd_scan": ssd_ops}  # the serving paths' kernels
+    WIDE = ("flash_attention_wide", "flash_attention_bwd_wide")  # no main path runs them
 
     def counts():
         """Every launch counter: forward, backward, quorum_compare, int8, ssd_scan
-        forward and backward."""
+        forward and backward, and the flash calls past D = 256."""
         out = {name: mod.launches for name, mod in fwd_ops.items()}
         out.update({name: mod.launches_bwd for name, mod in bwd_ops.items()})
         out["ssd_scan_bwd"] = ssd_ops.launches_bwd
+        out["flash_attention_wide"] = flash_ops.launches_wide
+        out["flash_attention_bwd_wide"] = flash_ops.launches_wide_bwd
         out["quorum_compare"] = quorum_ops.launches
         out["int8_quantize"] = int8_ops.launches_quantize
         out["int8_dequantize"] = int8_ops.launches_dequantize
@@ -453,6 +496,7 @@ def main() -> int:
         for mod in (rms_ops, swiglu_ops, flash_ops):
             mod.launches = mod.launches_bwd = 0
         quorum_ops.launches = ssd_ops.launches = ssd_ops.launches_bwd = 0
+        flash_ops.launches_wide = flash_ops.launches_wide_bwd = 0
         int8_ops.launches_quantize = int8_ops.launches_dequantize = 0
 
     # ---- 1. card and build -------------------------------------------------
@@ -576,13 +620,19 @@ def main() -> int:
         width = dim + 4 if layout == "wide" else dim
         return tuple(randn(b, s, n, width, dtype=dtype)[..., :dim] for n in (heads, kv, kv, *extra))
 
-    def flash_kernels_ran(rec, names, dtype, layout, label):
+    def flash_kernels_ran(rec, names, dtype, layout, label, dim):
         """The profiled launches ran the tensor-core kernels for bf16 (the
         2-byte staging variant for the "wide" layout) and the scalar ones
-        for f32; not checked where the profiler recorded nothing."""
+        for f32, and past D = 256 the wide-D kernels (``names`` then) in
+        the input's type; not checked where the profiler recorded nothing."""
         seen = rec["kernels"]
         if not seen:
             log(f"[2] {label}: kernel names not checked (the profiler recorded nothing)")
+            return
+        if dim > flash_ops.MAX_TILE_D:
+            want = sorted(f"{n}<{'float' if dtype == f32 else '__nv_bfloat16'}>" for n in names)
+            if seen != want:
+                raise AssertionError(f"{label} {dtype} D = {dim}: ran {seen}, want {want}")
             return
         want = [n + ("<float," if dtype == f32 else "<") for n in names]
         ok = all(any(k.startswith(w) for k in seen) for w in want) and len(seen) == len(want)
@@ -608,8 +658,9 @@ def main() -> int:
                     (q, k, v), tol, 2 * b * s * (heads + kv) * dim * esize(dtype) + 4 * b * heads * s * with_lse,
                     4 * heads * dim * pairs,
                     PEAK_OPS[str(dtype).replace("torch.", "")])
-        flash_kernels_ran(rec, MMA_FLASH[:1] if dtype == bf else SCALAR_FLASH[:1], dtype, layout,
-                          "flash_attention")
+        flash_kernels_ran(rec, WIDE_FLASH if dim > flash_ops.MAX_TILE_D else
+                          MMA_FLASH[:1] if dtype == bf else SCALAR_FLASH[:1], dtype, layout,
+                          "flash_attention", dim)
         return rec
 
     bf, f32 = torch.bfloat16, torch.float32
@@ -666,6 +717,13 @@ def main() -> int:
     check_flash(130, 4, 2, 192, bf, 2e-2, causal=False)
     check_flash(512, 8, 4, 256, f32, 2e-5)
     check_flash(130, 4, 2, 192, f32, 2e-5)
+    # past D = 256: the wide-D kernels at (1, 2048, 8/4, 512), bf16 and f32,
+    # their own rows (no configuration runs them: 0 launches on the main
+    # paths); a ragged D = 257 without the causal mask, and D = 320
+    results["flash_attention_wide"] = check_flash(TRAIN_SEQ, 8, 4, 512, bf, 2e-2)
+    results["flash_attention_wide_f32"] = check_flash(TRAIN_SEQ, 8, 4, 512, f32, 2e-5)
+    check_flash(130, 4, 2, 257, bf, 2e-2, causal=False)
+    check_flash(130, 4, 2, 320, f32, 2e-5)
 
     # backward kernels at the training path's shapes (2 x 2048 tokens)
     def autograd_bwd(fn, inputs, dy):
@@ -744,8 +802,9 @@ def main() -> int:
                         g.movedim(1, 2), causal=causal)),
                     lib, (q, k, v, out, lse, do), tol, nbytes,
                     2.5 * 4 * b * heads * dim * pairs, PEAK_OPS[str(dtype).replace("torch.", "")])
-        flash_kernels_ran(rec, MMA_FLASH[1:] if dtype == bf else SCALAR_FLASH[1:], dtype, layout,
-                          "flash_attention_bwd")
+        flash_kernels_ran(rec, WIDE_FLASH_BWD if dim > flash_ops.MAX_TILE_D else
+                          MMA_FLASH[1:] if dtype == bf else SCALAR_FLASH[1:], dtype, layout,
+                          "flash_attention_bwd", dim)
         # no float atomics: two calls on the same inputs give the same bits
         first = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
         again = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
@@ -794,6 +853,11 @@ def main() -> int:
     check_flash_bwd(1, 130, 4, 2, 192, bf, 2e-2, causal=False)
     check_flash_bwd(1, 512, 8, 4, 256, f32, 1e-4)
     check_flash_bwd(1, 130, 4, 2, 192, f32, 2e-5)
+    # past D = 256: the wide-D kernels (Delta, dQ, dK/dV over 64-column slices)
+    results["flash_attention_bwd_wide"] = check_flash_bwd(1, TRAIN_SEQ, 8, 4, 512, bf, 2e-2)
+    results["flash_attention_bwd_wide_f32"] = check_flash_bwd(1, TRAIN_SEQ, 8, 4, 512, f32, 1e-4)
+    check_flash_bwd(1, 130, 4, 2, 257, bf, 2e-2, causal=False)
+    check_flash_bwd(1, 130, 4, 2, 320, f32, 2e-5)
 
     # quorum_compare on a pair of embedding-gradient-sized leaves
     rows_e = cfg.padded_vocab
@@ -933,11 +997,17 @@ def main() -> int:
     # against autograd of the plain forward, on the card: each gradient to
     # tol times its leaf's largest entry (f32 1e-4; bf16 2e-2: the chunk's
     # products take bf16 operands and dx, dB and dC are bf16); two more calls
-    # on the same inputs must give the same bits. Bound: bytes (x, dy, B, C, dt, A and,
-    # with a state, the initial state and the final state's gradient read
-    # once; dx, dB, dC, ddt, dA and dinit written once) or operations (the
-    # gradients of the forward's two P x N products per position and head,
-    # 2 x 4 x P x N, at the input type's peak; the forward's rule, doubled).
+    # on the same inputs must give the same bits, and the main path's call
+    # (given the forward's states, as the autograd function passes them) the
+    # standalone call's bits (which recomputes them). Bound: bytes (x, dy, B,
+    # C, dt, A and, with a state, the initial state and the final state's
+    # gradient read once; dx, dB, dC, ddt, dA and dinit written once) or
+    # operations (the gradients of the forward's two P x N products per
+    # position and head, 2 x 4 x P x N, at the input type's peak; the
+    # forward's rule, doubled).
+    def scratch_mb(scratch):
+        return sum(math.prod(shape) * esize(dt_) for shape, dt_ in scratch.values()) / 1e6
+
     def check_ssd_bwd(b, s, h, p, g, n, dtype, tol, init=False, timed=False):
         x, dy = randn(b, s, h, p, dtype=dtype), randn(b, s, h, p, dtype=dtype)
         dt = torch.exp(uniform(b, s, h, lo=math.log(1e-3), hi=math.log(0.1)))
@@ -946,14 +1016,31 @@ def main() -> int:
         st0 = randn(b, h, p, n, dtype=f32) * 0.5 if init else None
         dst = randn(b, h, p, n, dtype=f32) if init else None
         desc = f"({b}, {s}, {h}, {p}) g{g} n{n}{' +state' if init else ''}"
+        states = ssd_ops.ssd_scan_with_states(x, dt, A, bm, cm, initial_state=st0)[2]
 
-        def kernel():
+        def kernel():  # the main path's call: the forward's states
+            return ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, dy, dst, st0, states=states)
+
+        def standalone():  # the states recomputed
             return ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, dy, dst, st0)
 
         def plain():
             return ssd_scan_bwd_ref(x, dt, A, bm, cm, dy, dst, st0, block_q=256)
 
-        got, want = kernel(), plain()
+        got = kernel()
+        torch.cuda.synchronize()
+        main_scratch = dict(ssd_ops.last_bwd_scratch)
+        alone = standalone()
+        torch.cuda.synchronize()
+        alone_scratch = dict(ssd_ops.last_bwd_scratch)
+        if not all(torch.equal(u, v) for u, v in zip(got, alone)):
+            raise AssertionError(f"ssd_scan_bwd {desc} {dtype}: the main path's call and the "
+                                 f"standalone call differ")
+        # no per-head (B, S, H, N) shares, and on the main path no recompute
+        if "ws" in main_scratch or any(shape == (b, s, h, n) for shape, _ in
+                                       (*main_scratch.values(), *alone_scratch.values())):
+            raise AssertionError(f"ssd_scan_bwd {desc}: scratch {main_scratch} / {alone_scratch}")
+        want = plain()
         leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, bm, cm)]
         leaves += [st0.clone().requires_grad_()] if init else []
         y, fs = ssd_scan_ref(*leaves[:5], block_q=256, initial_state=leaves[5] if init else None)
@@ -969,14 +1056,19 @@ def main() -> int:
                 if not torch.isfinite(o).all() or err > tol * scale:
                     raise AssertionError(f"ssd_scan_bwd {desc} {dtype} {name} against {label}: max abs "
                                          f"err {err:.3e} past {tol} x max|leaf| {scale:.3e}")
-        for _ in range(2):
-            again = kernel()
+        for fn in (kernel, kernel, standalone):
+            again = fn()
             if not all(torch.equal(u, v) for u, v in zip(got, again)):
                 raise AssertionError(f"ssd_scan_bwd {desc} {dtype}: two calls on the same inputs differ")
         worst = {label: max(v for (lb, _), v in errs.items() if lb == label) for label in ("plain", "autograd")}
+        if dtype == bf and worst["plain"] > 1e-2:  # the aim within the tolerance
+            raise AssertionError(f"ssd_scan_bwd {desc} bf16: worst err / max|leaf| "
+                                 f"{worst['plain']:.3e} past 1e-2")
         log(f"[2] ssd_scan_bwd {desc:32s} {str(dtype).replace('torch.', ''):9s} max err / max|leaf| "
             f"against the plain backward {worst['plain']:.3e}, autograd of the plain forward "
-            f"{worst['autograd']:.3e} (tol {tol}); bit-equal on repeat")
+            f"{worst['autograd']:.3e} (tol {tol}); bit-equal on repeat and to the standalone call; "
+            f"scratch MB main path {scratch_mb(main_scratch):.1f}, standalone "
+            f"{scratch_mb(alone_scratch):.1f}")
         if not timed:
             return None
         es = esize(dtype)
@@ -984,26 +1076,33 @@ def main() -> int:
             + (3 * 4 * b * h * p * n if init else 0)
         nops = 8 * b * s * h * p * n
         seen = []
-        rec = {"ms": device_ms(kernel, names=seen), "plain_ms": device_ms(plain), "library_ms": None,
+        rec = {"ms": device_ms(kernel, names=seen), "standalone_ms": device_ms(standalone),
+               "plain_ms": device_ms(plain), "library_ms": None,
                "call_ms": time_ms(kernel), "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                "ops_ms": nops / PEAK_OPS[str(dtype).replace("torch.", "")] * 1e3}
         rec["bound_ms"] = max(rec["bytes_ms"], rec["ops_ms"])
         rec["bound_by"] = "bytes" if rec["bytes_ms"] >= rec["ops_ms"] else "operations"
         rec.update(max_abs_err=max((o.float() - w.float()).abs().max().item() for o, w in zip(got, want)),
                    tol=tol, shape=desc, dtype=str(dtype).replace("torch.", ""), kernels=sorted(set(seen)))
-        # each of the call's kernels, device ms per call
-        dev_us, _ = profiled(kernel, 20)
-        split_ms = {(short_kernel_names({k: us}) or [k[:60]])[0]: round(us / 20 / 1e3, 5)
-                    for k, us in dev_us.items()}
-        check_ssd_bwd_profile(dev_us, f"[2] ssd_scan_bwd {desc}")
-        log(f"[2] ssd_scan_bwd {desc} {rec['dtype']}: kernel_ms {rec['ms']:.4f} (call {rec['call_ms']:.4f}) "
-            f"plain_ms {rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']}); device ms "
-            f"per call by kernel {json.dumps(split_ms)}")
+        # each of the call's kernels, device ms per call, on both routes
+        for route, fn in (("main path", kernel), ("standalone", standalone)):
+            calls = {}
+            dev_us, _ = profiled(fn, 20, calls=calls)
+            split_ms = {(short_kernel_names({k: us}) or [k[:60]])[0]: round(us / 20 / 1e3, 5)
+                        for k, us in dev_us.items()}
+            check_ssd_bwd_profile(dev_us, f"[2] ssd_scan_bwd {desc} {route}", calls=calls,
+                                  standalone=route == "standalone")
+            log(f"[2] ssd_scan_bwd {desc} {rec['dtype']} {route}: device ms per call by kernel "
+                f"{json.dumps(split_ms)}")
+        log(f"[2] ssd_scan_bwd {desc} {rec['dtype']}: kernel_ms {rec['ms']:.4f} (main path; call "
+            f"{rec['call_ms']:.4f}) standalone_ms {rec['standalone_ms']:.4f} plain_ms "
+            f"{rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']})")
         return rec
 
     # the training shapes (2 x 2048 tokens) of mamba2-130m and zamba2-1.2b,
-    # a ragged last chunk and P tile, two groups, and P = 128, N = 256 in 8
-    # groups with an initial state and a final-state gradient
+    # a ragged last chunk and P tile, two and eight groups, N % 4 != 0, and P
+    # = 128, N = 256 in 8 groups with an initial state and a final-state
+    # gradient
     results["ssd_scan_bwd"] = check_ssd_bwd(TRAIN_BATCH, TRAIN_SEQ, 24, 64, 1, 128, bf, 2e-2, timed=True)
     ssd_bwd_f32 = check_ssd_bwd(TRAIN_BATCH, TRAIN_SEQ, 24, 64, 1, 128, f32, 1e-4, timed=True)
     ssd_bwd_zamba2 = check_ssd_bwd(TRAIN_BATCH, TRAIN_SEQ, 64, 64, 1, 64, bf, 2e-2, timed=True)
@@ -1011,6 +1110,7 @@ def main() -> int:
     for dtype, tol in ((bf, 2e-2), (f32, 1e-4)):
         check_ssd_bwd(1, 333, 24, 40, 1, 128, dtype, tol)
         check_ssd_bwd(2, 200, 8, 32, 2, 32, dtype, tol)
+        check_ssd_bwd(1, 130, 16, 64, 8, 30, dtype, tol, init=True)
         check_ssd_bwd(1, TRAIN_SEQ, 16, 128, 8, 256, dtype, tol, init=True)
 
     # ---- 3. serve at full width -------------------------------------------
@@ -1146,16 +1246,30 @@ def main() -> int:
 
     def job_profile(tag, fn, top=14):
         """One grad job under torch.profiler: wall, busy, idle share, the top
-        kernels and the shares of ``groups``; returns the per-kernel device
-        microseconds."""
-        dev_us, job_wall = profile_breakdown(fn, f"[{tag}] grad job", top=top)
+        kernels, the shares of ``groups`` and the job's peak memory; returns
+        the per-kernel device microseconds and launches, and the ssd_scan
+        forward calls the launch counter saw meanwhile."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        calls = {}
+        forwards = ssd_ops.launches
+        dev_us, job_wall = profile_breakdown(fn, f"[{tag}] grad job", top=top, calls=calls)
+        torch.cuda.synchronize()
+        forwards = ssd_ops.launches - forwards
+        peak = torch.cuda.max_memory_allocated() / 2**30
         busy = sum(dev_us.values())
         if busy:
             shares = {g: sum(us for k, us in dev_us.items() if f(k)) / busy for g, f in groups.items()}
             shares["other"] = 1.0 - sum(shares.values())
             log(f"[{tag}] grad job device shares {json.dumps({k: round(v, 4) for k, v in shares.items()})} "
-                f"(busy {busy / 1e3:.2f} ms of {job_wall:.2f} ms wall)")
-        return dev_us
+                f"(busy {busy / 1e3:.2f} ms of {job_wall:.2f} ms wall, idle share "
+                f"{max(0.0, 1 - busy / 1e3 / job_wall):.3f}; ssd_scan backward "
+                f"{sum(us for k, us in dev_us.items() if groups['ssd_scan_bwd'](k)) / 1e3:.2f} ms); "
+                f"peak_mem_gib {peak:.2f}")
+        else:
+            log(f"[{tag}] grad job peak_mem_gib {peak:.2f}")
+        return dev_us, calls, forwards
 
     def grid_train(tag, cfg, required, idle_kernels):
         """Train ``cfg`` at full width through ``GridTrainer``: TRAIN_STEPS
@@ -1164,7 +1278,7 @@ def main() -> int:
         before and read just after: each of ``required`` must be non-zero,
         each of ``idle_kernels`` zero; no wrong gradient may be accepted.
         Then one grad job under torch.profiler. Returns the run's launches
-        and the profile's per-kernel device microseconds."""
+        and ``job_profile``'s result for the profiled job."""
         reset_ids()
         data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
                               n_shards=TRAIN_SHARDS, seed=SEED)
@@ -1212,14 +1326,14 @@ def main() -> int:
         batch_np = make_batch(data_cfg, 0, 0)
         batch = {k: torch.from_numpy(v.astype(np.int64)).to(dev) for k, v in batch_np.items()}
         grad_step = make_grad_step(cfg)
-        dev_us = job_profile(tag, lambda: grad_step(trainer.params, batch))
+        job = job_profile(tag, lambda: grad_step(trainer.params, batch))
         del trainer, grad_step, batch
         gc.collect()
         torch.cuda.empty_cache()
-        return train_launches, dev_us
+        return train_launches, job
 
-    train_launches, dev_us = grid_train("5", cfg, (*ops, *bwd_ops, "quorum_compare"),
-                                        ("ssd_scan", "ssd_scan_bwd"))
+    train_launches, (dev_us, _, _) = grid_train("5", cfg, (*ops, *bwd_ops, "quorum_compare"),
+                                           ("ssd_scan", "ssd_scan_bwd", *WIDE))
     check_flash_profile(dev_us, MMA_FLASH, "[5] grad job")
 
     # ---- 6. card (kernels) against CPU (plain versions): one f32 grad step --
@@ -1348,7 +1462,7 @@ def main() -> int:
         return loop_launches
 
     loop_launches = train_loop("7", cfg, (*ops, *bwd_ops),
-                               ("quorum_compare", "int8_quantize", "int8_dequantize"))
+                               ("quorum_compare", "int8_quantize", "int8_dequantize", *WIDE))
     loop_data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, n_shards=1,
                            seed=SEED)
 
@@ -1452,10 +1566,10 @@ def main() -> int:
     # ---- 13. train mamba2-130m through the volunteer grid at full width ----
     ssd_train = ("rmsnorm", "rmsnorm_bwd", "ssd_scan", "ssd_scan_bwd")
     log(f"[13] {mcfg.name} at full width: {Lm} layers, remat={mcfg.remat}")
-    mamba_train_launches, dev_us = grid_train(
+    mamba_train_launches, (dev_us, calls, forwards) = grid_train(
         "13", mcfg, (*ssd_train, "quorum_compare"),
-        ("flash_attention", "flash_attention_bwd", "swiglu", "swiglu_bwd"))
-    check_ssd_bwd_profile(dev_us, "[13] grad job")
+        ("flash_attention", "flash_attention_bwd", "swiglu", "swiglu_bwd", *WIDE))
+    check_ssd_bwd_profile(dev_us, "[13] grad job", calls=calls, forwards=forwards)
     check_ssd_profile(dev_us, True, "[13] grad job")
 
     # ---- 14. card (kernels) against CPU (plain versions): f32 grad steps ---
@@ -1470,7 +1584,7 @@ def main() -> int:
     # ---- 15. train mamba2-130m through the plain training loop -------------
     mamba_loop_launches = train_loop("15", mcfg, ssd_train,
                                      ("flash_attention", "flash_attention_bwd", "swiglu", "swiglu_bwd",
-                                      "quorum_compare", "int8_quantize", "int8_dequantize"))
+                                      "quorum_compare", "int8_quantize", "int8_dequantize", *WIDE))
 
     # ---- 16. one zamba2-1.2b grad job at full width -------------------------
     params = init_params(gen, model_spec(zcfg), device=dev)
@@ -1491,11 +1605,13 @@ def main() -> int:
     want16 = ("rmsnorm", "rmsnorm_bwd", "swiglu", "swiglu_bwd", "flash_attention", "flash_attention_bwd",
               "ssd_scan", "ssd_scan_bwd")
     idle16 = [k for k in want16 if zamba_train_launches[k] == 0]
+    idle16 += [k for k in WIDE if zamba_train_launches[k]]
     if idle16 or not math.isfinite(zloss) or not all(torch.isfinite(g).all() for g in tree_leaves(zgrads)):
-        raise AssertionError(f"zamba2 grad job: kernels never launched {idle16}, loss {zloss}")
+        raise AssertionError(f"zamba2 grad job: kernels never launched or wide-D flash launched "
+                             f"{idle16}, loss {zloss}")
     del zgrads
-    dev_us = job_profile("16", lambda: zgrad(params, batch))
-    check_ssd_bwd_profile(dev_us, "[16] grad job")
+    dev_us, calls, forwards = job_profile("16", lambda: zgrad(params, batch))
+    check_ssd_bwd_profile(dev_us, "[16] grad job", calls=calls, forwards=forwards)
     check_flash_profile(dev_us, MMA_FLASH, "[16] grad job")
     del params, batch, zgrad
     gc.collect()
@@ -1519,15 +1635,22 @@ def main() -> int:
         # the f32 scalar flash kernels, run by the f32 checks (phases 4, 6, 10, 12)
         "flash_attention_f32": "src/repro/kernels/flash_attention/kernel.py:30",
         "flash_attention_bwd_f32": "src/repro/kernels/flash_attention/kernel.py:30",
+        # the wide-D flash kernels (D > 256), both types, run by phase 2 alone
+        **{n: "src/repro/kernels/flash_attention/kernel.py:30"
+           for n in ("flash_attention_wide", "flash_attention_wide_f32", "flash_attention_bwd_wide",
+                     "flash_attention_bwd_wide_f32")},
     }
-    sources = {"int8_quantize": "int8_quant", "int8_dequantize": "int8_quant"}
+    sources = {"int8_quantize": "int8_quant", "int8_dequantize": "int8_quant",
+               **{n: "flash_attention" for n in replaces if "wide" in n}}
     main_launches = {**train_launches, "int8_quantize": comp_launches["int8_quantize"],
                      "int8_dequantize": comp_launches["int8_dequantize"],
                      "ssd_scan": mamba_launches["ssd_scan"],
                      "ssd_scan_bwd": mamba_train_launches["ssd_scan_bwd"],
                      # f32 rows: the f32 grad step's launches (phase 6)
                      "flash_attention_f32": f32_launches["flash_attention"],
-                     "flash_attention_bwd_f32": f32_launches["flash_attention_bwd"]}
+                     "flash_attention_bwd_f32": f32_launches["flash_attention_bwd"],
+                     # the wide-D rows: the grid training run's (0; every main path checks 0)
+                     **{n: train_launches[n.replace("_f32", "")] for n in replaces if "wide" in n}}
     kernels = []
     for name, rec in results.items():
         base = name.replace("_f32", "")
@@ -1548,6 +1671,8 @@ def main() -> int:
             row["launches_train_loop"] = loop_launches[name]
         if name.endswith("_f32"):
             row["launches_in"] = "phase 6, the f32 grad step"
+        if "wide" in name:
+            row["launches_in"] = "phase 5; every main path (phases 3, 5, 7, 9, 11, 13, 15, 16) launched none"
         if name == "ssd_scan":
             row["launches_serve"] = mamba_launches[name]
             row["launches_serve_zamba2"] = zamba_launches[name]
@@ -1558,11 +1683,13 @@ def main() -> int:
             # launches: the mamba2 grid run's (phase 13)
             row["launches_train_loop"] = mamba_loop_launches[name]
             row["launches_train_zamba2"] = zamba_train_launches[name]
-            row["f32"] = {k: ssd_bwd_f32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
-            row["zamba2"] = {k: ssd_bwd_zamba2[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                                            "bound_by", "max_abs_err")}
-            row["zamba2_f32"] = {k: ssd_bwd_zamba2_f32[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                                    "bound_by")}
+            row["standalone_ms"] = rec["standalone_ms"]
+            row["f32"] = {k: ssd_bwd_f32[k] for k in ("ms", "standalone_ms", "plain_ms", "bound_ms",
+                                                      "bound_by")}
+            row["zamba2"] = {k: ssd_bwd_zamba2[k] for k in ("shape", "ms", "standalone_ms", "plain_ms",
+                                                            "bound_ms", "bound_by", "max_abs_err")}
+            row["zamba2_f32"] = {k: ssd_bwd_zamba2_f32[k] for k in ("ms", "standalone_ms", "plain_ms",
+                                                                    "bound_ms", "bound_by")}
         kernels.append(row)
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -82,9 +82,13 @@
 // f32 FMAs. The same loops, masks and clamps as above. At kDW = 256 the
 // dK/dV kernel takes 32 keys a block (206 KB of tiles at D = 256).
 //
+// Past D = 256, both types go to the wide-D kernels (flash_fwd_wide_kernel,
+// flash_bwd_delta_kernel, flash_bwd_dq_wide_kernel,
+// flash_bwd_dkdv_wide_kernel; their section says how), so D may be anything.
+//
 // Every kernel reads and writes q, k, v, o, dO, dq, dk and dv through their
 // (batch, seq, head) strides with unit stride along D: the caller needs no
-// transpose and no padding copy. D may be anything up to 256. Query head h
+// transpose and no padding copy. Query head h
 // reads KV head h / (H / KV). lse and Delta are f32 (B, H, S), contiguous.
 #include <initializer_list>
 
@@ -96,7 +100,7 @@ namespace {
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;  // == kBlockQ: the forward's and dQ's causal loops rely on it
 constexpr int kThreads = 256;  // 16 x 16
-constexpr int kMaxD = 256;     // the widest D the kernels take
+constexpr int kMaxD = 256;     // the widest D the tile kernels take; past it, the wide-D kernels
 constexpr float kNegInf = -1e30f;
 
 // Keys per block of the scalar dK/dV kernel: 64, or 32 at kDW = 256, where
@@ -1148,6 +1152,441 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 }
 
+// ---- the wide-D kernels (D > kMaxD), f32 and bf16 ----------------------------
+//
+// One block of 256 threads per (64-row tile, head, batch, 64-column slice of
+// the output): the scores, and in the backward dP = dO V^T, are summed over
+// D in 64-column slices staged in shared memory as f32, so shared memory is
+// bounded (four to six 64 x 65 f32 tiles) whatever D is; the block keeps
+// only its slice's columns of O, dQ, dK or dV. Each block recomputes the
+// scores over all of D, D / 64 times in all: a simple design for a width no
+// configuration of the repo runs. Scalar f32 FMAs in both types (each thread
+// 4 x 4 of a 64 x 64 product), the forward's online softmax and the
+// backward's P = exp(S * scale - lse), dS = P (dP - Delta) as the scalar
+// kernels above have them; Delta = rowsum(dO * O) first, by its own small
+// kernel. No float atomics: dK and dV sum the group's query heads inside
+// the block, so the backward repeats bit for bit.
+
+constexpr int kWide = 64;          // D columns a slice
+constexpr int kWLd = kWide + 1;    // f32 row stride of a slice tile
+constexpr int kWTile = kBlockQ * kWLd;
+
+__host__ __device__ constexpr int wide_slices(int D) { return (D + kWide - 1) / kWide; }
+
+// Rows [s0, s0 + 64) and columns [c0, c0 + 64) of one head (row stride rs)
+// as f32, zeros past S and D. Thread t takes column t % 64 of rows t / 64 +
+// 4 i; its 16 loads go out 8 at a time.
+template <typename T>
+__device__ __forceinline__ void stage_slice(float* __restrict__ tile, const T* __restrict__ base,
+                                            int64_t rs, int s0, int S, int c0, int D, int tid) {
+  const int c = tid & 63, r0 = tid >> 6;
+  const bool col = c0 + c < D;
+#pragma unroll
+  for (int b = 0; b < kBlockQ / 4; b += 8) {
+    float vals[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int s = s0 + r0 + 4 * (b + i);
+      vals[i] = col && s < S ? repro::to_f32(base[s * rs + c0 + c]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) tile[(r0 + 4 * (b + i)) * kWLd + c] = vals[i];
+  }
+}
+
+// acc[i][j] += sum_d a[(ty + 16 i)][d] b[(tx + 16 j)][d] over one slice
+__device__ __forceinline__ void slice_dot(float (&acc)[4][4], const float* __restrict__ a,
+                                          const float* __restrict__ b, int ty, int tx) {
+#pragma unroll 8
+  for (int d = 0; d < kWide; ++d) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * kWLd + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * kWLd + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// acc[i][j] += sum_k p[(ty + 16 i)][k] v[k][(tx + 16 j)]: rows of p times a slice
+__device__ __forceinline__ void slice_pv(float (&acc)[4][4], const float* __restrict__ p,
+                                         const float* __restrict__ v, int ty, int tx) {
+#pragma unroll 8
+  for (int k = 0; k < kWide; ++k) {
+    float pv[4], vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pv[i] = p[(ty + 16 * i) * kWLd + k];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) vv[j] = v[k * kWLd + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+  }
+}
+
+// acc[i][j] += sum_q p[q][(ty + 16 i)] v[q][(tx + 16 j)]: columns of p times a slice
+__device__ __forceinline__ void slice_ptv(float (&acc)[4][4], const float* __restrict__ p,
+                                          const float* __restrict__ v, int ty, int tx) {
+#pragma unroll 8
+  for (int q = 0; q < kWide; ++q) {
+    float pv[4], vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pv[i] = p[q * kWLd + ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) vv[j] = v[q * kWLd + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ void zero44(float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+}
+
+// S = Q K^T and, with dO and V, dP = dO V^T, summed over every slice of D:
+// rows ty + 16 i of the query tile q0, keys tx + 16 j of the key tile k0
+template <typename T, bool kDP>
+__device__ __forceinline__ void wide_scores(float (&sc)[4][4], float (&dp)[4][4], float* t_q,
+                                            float* t_k, float* t_do, float* t_v, const T* qb,
+                                            const T* kb, const T* dob, const T* vb, int64_t q_rs,
+                                            int64_t k_rs, int64_t do_rs, int64_t v_rs, int q0,
+                                            int k0, int S, int D, int tid, int ty, int tx) {
+  zero44(sc);
+  if constexpr (kDP) zero44(dp);
+  for (int d0 = 0; d0 < D; d0 += kWide) {
+    __syncthreads();  // the last slices read by everyone
+    stage_slice<T>(t_q, qb, q_rs, q0, S, d0, D, tid);
+    stage_slice<T>(t_k, kb, k_rs, k0, S, d0, D, tid);
+    if constexpr (kDP) {
+      stage_slice<T>(t_do, dob, do_rs, q0, S, d0, D, tid);
+      stage_slice<T>(t_v, vb, v_rs, k0, S, d0, D, tid);
+    }
+    __syncthreads();
+    slice_dot(sc, t_q, t_k, ty, tx);
+    if constexpr (kDP) slice_dot(dp, t_do, t_v, ty, tx);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ o, float* __restrict__ lse, int S, int H, int KV, int D,
+                      Strides qs, Strides ks, Strides vs, Strides os, float sm_scale, int causal) {
+  extern __shared__ float smem[];
+  float* t_q = smem;            // a slice of Q
+  float* t_kv = t_q + kWTile;   // a slice of K, then the output slice of V
+  float* t_p = t_kv + kWTile;   // P
+
+  const int nds = wide_slices(D);
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z / nds, c0 = (blockIdx.z % nds) * kWide;
+  const int kvh = h / (H / KV);
+  const int q0 = qt * kBlockQ;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + kvh * ks.h;
+  const T* vb = v + b * vs.b + kvh * vs.h;
+
+  float m[4], l[4], acc[4][4], sc[4][4], unused[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  zero44(acc);
+  const int n_tiles = (S + kBlockK - 1) / kBlockK;
+  const int n_kt = causal ? min(n_tiles, qt + 1) : n_tiles;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBlockK;
+    wide_scores<T, false>(sc, unused, t_q, t_kv, nullptr, nullptr, qb, kb, nullptr, nullptr, qs.s,
+                          ks.s, 0, 0, q0, k0, S, D, tid, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty + 16 * i;
+      float mcur = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        float s = sc[i][j] * sm_scale;
+        if (kpos >= S || (causal && kpos > qpos)) s = kNegInf;
+        sc[i][j] = s;
+        mcur = fmaxf(mcur, s);
+      }
+      // the 16 threads of a row are lanes 0-15 or 16-31 of one warp
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mcur = fmaxf(mcur, __shfl_xor_sync(0xffffffffu, mcur, off));
+      const float m_new = fmaxf(m[i], mcur);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(sc[i][j] - m_new);
+        t_p[(ty + 16 * i) * kWLd + tx + 16 * j] = p;
+        psum += p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      const float alpha = expf(m[i] - m_new);
+      l[i] = alpha * l[i] + psum;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+      m[i] = m_new;
+    }
+    __syncthreads();  // P complete; the K slice read by everyone
+    stage_slice<T>(t_kv, vb, vs.s, k0, S, c0, D, tid);
+    __syncthreads();
+    slice_pv(acc, t_p, t_kv, ty, tx);
+  }
+
+  T* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos >= S) continue;
+    const float li = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (c < D) ob[qpos * os.s + c] = repro::from_f32<T>(acc[i][j] / li);
+    }
+    if (lse != nullptr && c0 == 0 && tx == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * S + qpos] = m[i] + logf(li);
+  }
+}
+
+// Delta = rowsum(dO * O), one warp a row: each lane's columns in order, then
+// a shuffle tree
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int S, int H, int D, Strides os, Strides dos) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s = blockIdx.x * (kThreads / 32) + warp, h = blockIdx.y, b = blockIdx.z;
+  if (s >= S) return;
+  const T* orow = o + b * os.b + h * os.h + s * os.s;
+  const T* drow = dout + b * dos.b + h * dos.h + s * dos.s;
+  float sum = 0.f;
+  for (int c = lane; c < D; c += 32) sum = fmaf(repro::to_f32(drow[c]), repro::to_f32(orow[c]), sum);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) delta[(static_cast<int64_t>(b) * H + h) * S + s] = sum;
+}
+
+// P and dS of one (query tile, key tile) from S and dP (rows ty + 16 i,
+// keys tx + 16 j), into t_p and t_ds; 0 past S and above the diagonal
+__device__ __forceinline__ void wide_p_ds(const float (&sc)[4][4], const float (&dp)[4][4],
+                                          const float (&lse_r)[4], const float (&delta_r)[4],
+                                          float* t_p, float* t_ds, int q0, int k0, int S,
+                                          float sm_scale, int causal, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kpos = k0 + tx + 16 * j;
+      const bool live = qpos < S && kpos < S && !(causal && kpos > qpos);
+      const float p = live ? expf(sc[i][j] * sm_scale - lse_r[i]) : 0.f;
+      t_p[(ty + 16 * i) * kWLd + tx + 16 * j] = p;
+      t_ds[(ty + 16 * i) * kWLd + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
+    }
+  }
+}
+
+// dQ for one (query tile, head, batch, column slice): over the key tiles,
+// S and dP over all of D, then dQ += dS K over the slice
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         T* __restrict__ dq, int S, int H, int KV, int D, Strides qs, Strides ks,
+                         Strides vs, Strides dos, Strides dqs, float sm_scale, int causal) {
+  extern __shared__ float smem[];
+  float* t_q = smem;
+  float* t_k = t_q + kWTile;   // a slice of K (for S, then the output slice)
+  float* t_do = t_k + kWTile;
+  float* t_v = t_do + kWTile;
+  float* t_p = t_v + kWTile;
+  float* t_ds = t_p + kWTile;
+
+  const int nds = wide_slices(D);
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z / nds, c0 = (blockIdx.z % nds) * kWide;
+  const int kvh = h / (H / KV);
+  const int q0 = qt * kBlockQ;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + kvh * ks.h;
+  const T* vb = v + b * vs.b + kvh * vs.h;
+  const T* dob = dout + b * dos.b + h * dos.h;
+  const int64_t bh = (static_cast<int64_t>(b) * H + h) * S;
+  float lse_r[4], delta_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    lse_r[i] = qpos < S ? lse[bh + qpos] : 0.f;
+    delta_r[i] = qpos < S ? delta[bh + qpos] : 0.f;
+  }
+  float acc[4][4], sc[4][4], dp[4][4];
+  zero44(acc);
+  const int n_tiles = (S + kBlockK - 1) / kBlockK;
+  const int n_kt = causal ? min(n_tiles, qt + 1) : n_tiles;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBlockK;
+    wide_scores<T, true>(sc, dp, t_q, t_k, t_do, t_v, qb, kb, dob, vb, qs.s, ks.s, dos.s, vs.s, q0,
+                         k0, S, D, tid, ty, tx);
+    wide_p_ds(sc, dp, lse_r, delta_r, t_p, t_ds, q0, k0, S, sm_scale, causal, ty, tx);
+    __syncthreads();  // dS complete; the K slice read by everyone
+    stage_slice<T>(t_k, kb, ks.s, k0, S, c0, D, tid);
+    __syncthreads();
+    slice_pv(acc, t_ds, t_k, ty, tx);
+  }
+  T* dqb = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos >= S) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (c < D) dqb[qpos * dqs.s + c] = repro::from_f32<T>(acc[i][j] * sm_scale);
+    }
+  }
+}
+
+// dK and dV for one (key tile, KV head, batch, column slice): over the
+// group's query heads in order and, for each, the query tiles from the
+// diagonal on, S and dP over all of D, then dV += P^T dO and dK += dS^T Q
+// over the slice
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KV, int D,
+                           Strides qs, Strides ks, Strides vs, Strides dos, Strides dks,
+                           Strides dvs, float sm_scale, int causal) {
+  extern __shared__ float smem[];
+  float* t_q = smem;
+  float* t_k = t_q + kWTile;
+  float* t_do = t_k + kWTile;
+  float* t_v = t_do + kWTile;
+  float* t_p = t_v + kWTile;
+  float* t_ds = t_p + kWTile;
+
+  const int nds = wide_slices(D);
+  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z / nds, c0 = (blockIdx.z % nds) * kWide;
+  const int group = H / KV;
+  const int k0 = kt * kBlockK;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const T* kb = k + b * ks.b + kvh * ks.h;
+  const T* vb = v + b * vs.b + kvh * vs.h;
+  float dka[4][4], dva[4][4], sc[4][4], dp[4][4];
+  zero44(dka);
+  zero44(dva);
+  const int n_tiles = (S + kBlockQ - 1) / kBlockQ;
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = kvh * group + hh;
+    const T* qb = q + b * qs.b + h * qs.h;
+    const T* dob = dout + b * dos.b + h * dos.h;
+    const int64_t bh = (static_cast<int64_t>(b) * H + h) * S;
+    for (int qt = causal ? kt : 0; qt < n_tiles; ++qt) {
+      const int q0 = qt * kBlockQ;
+      float lse_r[4], delta_r[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qpos = q0 + ty + 16 * i;
+        lse_r[i] = qpos < S ? lse[bh + qpos] : 0.f;
+        delta_r[i] = qpos < S ? delta[bh + qpos] : 0.f;
+      }
+      wide_scores<T, true>(sc, dp, t_q, t_k, t_do, t_v, qb, kb, dob, vb, qs.s, ks.s, dos.s, vs.s,
+                           q0, k0, S, D, tid, ty, tx);
+      wide_p_ds(sc, dp, lse_r, delta_r, t_p, t_ds, q0, k0, S, sm_scale, causal, ty, tx);
+      __syncthreads();  // P and dS complete; the Q and dO slices read by everyone
+      stage_slice<T>(t_q, qb, qs.s, q0, S, c0, D, tid);
+      stage_slice<T>(t_do, dob, dos.s, q0, S, c0, D, tid);
+      __syncthreads();
+      slice_ptv(dva, t_p, t_do, ty, tx);
+      slice_ptv(dka, t_ds, t_q, ty, tx);
+    }
+  }
+  T* dkb = dk + b * dks.b + kvh * dks.h;
+  T* dvb = dv + b * dvs.b + kvh * dvs.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kpos = k0 + ty + 16 * i;
+    if (kpos >= S) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (c >= D) continue;
+      dkb[kpos * dks.s + c] = repro::from_f32<T>(dka[i][j] * sm_scale);
+      dvb[kpos * dvs.s + c] = repro::from_f32<T>(dva[i][j]);
+    }
+  }
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                int H, int KV, int D, Strides qs, Strides ks, Strides vs, Strides os,
+                float sm_scale, int causal, cudaStream_t stream) {
+  constexpr int smem = 3 * kWTile * sizeof(float);
+  const int64_t z = static_cast<int64_t>(B) * wide_slices(D);
+  if (z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_wide_kernel<T>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, static_cast<unsigned>(z));
+  flash_fwd_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, S, H, KV, D, qs, ks, vs, os, sm_scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_wide(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                    const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int S,
+                    int H, int KV, int D, Strides qs, Strides ks, Strides vs, Strides os,
+                    Strides dos, Strides dqs, Strides dks, Strides dvs, float sm_scale,
+                    int causal, cudaStream_t stream) {
+  constexpr int smem = 6 * kWTile * sizeof(float);
+  const int64_t z = static_cast<int64_t>(B) * wide_slices(D);
+  if (z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wide_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_wide_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_tiles = (S + kBlockQ - 1) / kBlockQ;
+  // Delta first: both kernels read it
+  flash_bwd_delta_kernel<T><<<dim3((S + kThreads / 32 - 1) / (kThreads / 32), H, B), kThreads, 0,
+                              stream>>>(static_cast<const T*>(o), static_cast<const T*>(dout),
+                                        delta, S, H, D, os, dos);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_wide_kernel<T><<<dim3(n_tiles, H, static_cast<unsigned>(z)), kThreads, smem,
+                                stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), S, H, KV, D, qs, ks, vs, dos,
+      dqs, sm_scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_wide_kernel<T><<<dim3(n_tiles, KV, static_cast<unsigned>(z)), kThreads, smem,
+                                  stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, H, KV,
+      D, qs, ks, vs, dos, dks, dvs, sm_scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- launches ------------------------------------------------------------
 
 template <typename T, int kDW>
@@ -1290,13 +1729,16 @@ extern "C" int repro_flash_attention(
     int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
     float sm_scale, int causal, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV || D <= 0 || D > kMaxD || H > 65535 ||
-      B > 65535)
+  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV || D <= 0 || H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
       os{o_sb, o_ss, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (D > kMaxD && dtype == repro::kFloat32)
+    return launch_wide<float>(q, k, v, o, l, B, S, H, KV, D, qs, ks, vs, os, sm_scale, causal, s);
+  if (D > kMaxD && dtype == repro::kBFloat16)
+    return launch_wide<bf16>(q, k, v, o, l, B, S, H, KV, D, qs, ks, vs, os, sm_scale, causal, s);
   if (dtype == repro::kFloat32)
     return D <= 128
                ? launch<float, 128>(q, k, v, o, l, B, S, H, KV, D, qs, ks, vs, os, sm_scale, causal, s)
@@ -1322,8 +1764,7 @@ extern "C" int repro_flash_attention_bwd(
     int64_t do_sb, int64_t do_ss, int64_t do_sh, int64_t dq_sb, int64_t dq_ss, int64_t dq_sh,
     int64_t dk_sb, int64_t dk_ss, int64_t dk_sh, int64_t dv_sb, int64_t dv_ss, int64_t dv_sh,
     float sm_scale, int causal, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV || D <= 0 || D > kMaxD || H > 65535 ||
-      B > 65535)
+  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV || D <= 0 || H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
       os{o_sb, o_ss, o_sh}, dos{do_sb, do_ss, do_sh}, dqs{dq_sb, dq_ss, dq_sh},
@@ -1331,6 +1772,12 @@ extern "C" int repro_flash_attention_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  if (D > kMaxD && dtype == repro::kFloat32)
+    return launch_bwd_wide<float>(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, KV, D, qs, ks, vs,
+                                  os, dos, dqs, dks, dvs, sm_scale, causal, s);
+  if (D > kMaxD && dtype == repro::kBFloat16)
+    return launch_bwd_wide<bf16>(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, KV, D, qs, ks, vs,
+                                 os, dos, dqs, dks, dvs, sm_scale, causal, s);
   if (dtype == repro::kFloat32)
     return D <= 128 ? launch_bwd<float, 128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, H, KV, D, qs,
                                              ks, vs, os, dos, dqs, dks, dvs, sm_scale, causal, s)

@@ -17,8 +17,12 @@ does not have (softmax, lse and Delta stay f32).
 The kernels read q, k and v through their strides, so neither the transpose
 to ``(B, H, S, D)`` nor the reference wrapper's padding of the sequence to
 block multiples and of D to 128 lanes is needed: the kernels pad D in shared
-memory to 64, 128 or 256 and take any D up to ``MAX_D`` = 256 (a wider D
-raises; no architecture in the repo passes 128). Query head h reads KV head
+memory to 64, 128 or 256 and take any D up to ``MAX_TILE_D`` = 256. A wider D
+(no architecture in the repo passes 128), in either type, goes to the wide-D
+kernels: scalar f32 FMAs over 64-column slices of D staged in shared memory,
+one block per (query or key tile, head, batch, 64 output columns), the
+scores recomputed for each slice, and Delta by a small first kernel; the
+reference takes any D too (it pads D to 128 lanes). Query head h reads KV head
 ``h // (H // KV)``; ``sm_scale`` is ``1/sqrt(D)``. In bf16, rows whose
 base or stride is not 16-byte aligned (or D not a multiple of 8) are
 staged with 2-byte loads instead of 16-byte copies.
@@ -27,8 +31,9 @@ staged with 2-byte loads instead of 16-byte copies.
 gradient is wanted: its forward also writes the rows' log-sum-exp, which
 the backward kernels (dQ, then dK/dV) read. Serving calls the forward alone,
 with no log-sum-exp. ``launches`` counts forward launches and
-``launches_bwd`` backward calls (each two CUDA launches); the CPU path
-leaves them alone. No kernel uses a float atomic: equal inputs give
+``launches_bwd`` backward calls (each two CUDA launches; three past
+``MAX_TILE_D``), of which ``launches_wide`` and ``launches_wide_bwd`` count
+those that ran the wide-D kernels; the CPU path leaves them alone. No kernel uses a float atomic: equal inputs give
 bit-equal gradients.
 """
 from __future__ import annotations
@@ -42,7 +47,7 @@ import torch
 from .. import _build
 from .ref import attention_bwd_ref, attention_ref
 
-MAX_D = 256
+MAX_TILE_D = 256  # the widest D of the tile kernels; past it the wide-D kernels
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
     [ctypes.c_void_p] * 5  # q, k, v, out, lse (null when not wanted)
@@ -59,6 +64,8 @@ _BWD_ARGTYPES = (
 
 launches = 0
 launches_bwd = 0
+launches_wide = 0
+launches_wide_bwd = 0
 
 
 def _heads_first(*ts: torch.Tensor):
@@ -74,9 +81,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[int, int,
     kv = k.shape[2]
     if k.shape != (b, s, kv, d) or v.shape != k.shape or kv == 0 or h % kv:
         raise ValueError(f"flash_attention shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if not 0 < d <= MAX_D:
-        raise ValueError(f"flash_attention kernel needs 0 < D <= {MAX_D} (the kernels' cap), "
-                         f"got {d}")
+    if d <= 0:
+        raise ValueError(f"flash_attention kernel needs D > 0, got {d}")
     return b, s, h, kv, d
 
 
@@ -89,7 +95,7 @@ def flash_attention_fwd(
     with_lse: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``(out (B, S, H, D), lse (B, H, S) f32 or None)``."""
-    global launches
+    global launches, launches_wide
     b, s, h, d = q.shape
     sm_scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
@@ -110,6 +116,7 @@ def flash_attention_fwd(
                   _build.stream_ptr(q.device))
         _build.check("flash_attention", code)
         launches += 1
+        launches_wide += int(d > MAX_TILE_D)
     return out, lse
 
 
@@ -118,7 +125,7 @@ def flash_attention_bwd(
     dout: torch.Tensor, *, causal: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` on the model layout, in the inputs' dtype."""
-    global launches_bwd
+    global launches_bwd, launches_wide_bwd
     b, s, h, d = q.shape
     sm_scale = 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
@@ -145,6 +152,7 @@ def flash_attention_bwd(
                   _build.stream_ptr(q.device))
         _build.check("flash_attention", code)
         launches_bwd += 1
+        launches_wide_bwd += int(d > MAX_TILE_D)
     return dq, dk, dv
 
 

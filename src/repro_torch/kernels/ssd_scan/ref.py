@@ -33,6 +33,10 @@ incoming state:
   position; ``da_t`` is its suffix sum within the chunk, ``ddt_t = sum_i
   T_it / dt_t + exp(total - cum_t) x_t^T G_out B_t + A da_t`` and
   ``dA = sum dt_t da_t``.
+
+``ssd_chunk_states_ref`` gives every chunk's incoming state and summed
+``dt * A``, the ``states`` that ``ssd_scan_bwd_ref`` takes in place of its
+own recompute, as the kernels' backward takes the forward's.
 """
 from __future__ import annotations
 
@@ -122,6 +126,58 @@ def _unchunk(t: torch.Tensor, s: int) -> torch.Tensor:
     return t.permute(0, 2, 3, 1, 4).reshape(b, nc * q, h, f)[:, :s]
 
 
+def _chunked(x, dt, A, Bm, block_q):
+    """The chunk of ``block_q`` positions (at most S), the padding and the
+    chunked f32 views: x (B, H, nc, Q, P), B (B, H, nc, Q, N) per head, dt
+    and cum (B, H, nc, Q), total (B, H, nc)."""
+    b, s, h, p = x.shape
+    rep = h // Bm.shape[2]
+    q = max(min(block_q, s), 1)
+    pad = (-s) % q
+    nc = (s + pad) // q
+    xf, dtf, Bf = (t.float() for t in (x, dt, Bm))
+    if pad:
+        xf, dtf, Bf = (torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+                       for t in (xf, dtf, Bf))
+    xc = _chunks(xf, nc, q)
+    Bc = _chunks(Bf.repeat_interleave(rep, dim=2), nc, q)
+    dtc = _chunks(dtf[..., None], nc, q)[..., 0]
+    cum = torch.cumsum(dtc * A.float()[None, :, None, None], dim=-1)
+    return q, pad, nc, xc, Bc, dtc, cum, cum[..., -1]
+
+
+def _incoming_states(xc, Bc, dtc, cum, total, initial_state):
+    """Every chunk's incoming state, (B, H, nc, P, N) f32."""
+    b, h, nc, _, p = xc.shape
+    n = Bc.shape[-1]
+    w = dtc * torch.exp(total[..., None] - cum)
+    contrib = torch.einsum("bhcq,bhcqp,bhcqn->bhcpn", w, xc, Bc)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=xc.device)
+             if initial_state is None else initial_state.float())
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = state * torch.exp(total[:, :, c])[..., None, None] + contrib[:, :, c]
+    return torch.stack(s_in, dim=2)
+
+
+def ssd_chunk_states_ref(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) f32
+    A: torch.Tensor,  # (H,) f32, negative
+    Bm: torch.Tensor,  # (B, S, G, N)
+    *,
+    block_q: int = 128,
+    initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(s_in (B, nc, H, P, N), total (B, H, nc))``, f32: every chunk's
+    incoming state and its summed ``dt * A``, at chunks of ``block_q``
+    positions (the last padded): the ``states`` that ``ssd_scan_bwd_ref``
+    takes in place of its own recompute, in the layout the kernels keep."""
+    _, _, _, xc, Bc, dtc, cum, total = _chunked(x, dt, A, Bm, block_q)
+    return _incoming_states(xc, Bc, dtc, cum, total, initial_state).transpose(1, 2), total
+
+
 def ssd_scan_bwd_ref(
     x: torch.Tensor,  # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H) f32
@@ -133,38 +189,35 @@ def ssd_scan_bwd_ref(
     initial_state: Optional[torch.Tensor] = None,  # (B, H, P, N); None: zeros
     *,
     block_q: int = 128,
+    states: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """``(dx, ddt, dA, dB, dC, dinit)``, all f32 (the caller casts dx, dB
     and dC to the inputs' dtype); dinit is the gradient of the initial
-    state, zeros or not."""
+    state, zeros or not. ``states``: every chunk's incoming state and summed
+    ``dt * A`` at this ``block_q``, as ``ssd_chunk_states_ref`` gives them
+    (the forward's, on the main path); None recomputes them."""
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     rep = h // g
-    q = max(min(block_q, s), 1)
-    pad = (-s) % q
-    nc = (s + pad) // q
-    xf, dtf, Bf, Cf, dyf = (t.float() for t in (x, dt, Bm, Cm, dy))
-    if pad:
-        xf, dtf, Bf, Cf, dyf = (torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
-                                for t in (xf, dtf, Bf, Cf, dyf))
+    q, pad, nc, xc, Bc, dtc, cum, total = _chunked(x, dt, A, Bm, block_q)
     Af = A.float()
-    xc, dyc = _chunks(xf, nc, q), _chunks(dyf, nc, q)  # (B,H,nc,Q,P)
-    Bc = _chunks(Bf.repeat_interleave(rep, dim=2), nc, q)  # (B,H,nc,Q,N)
+    Cf, dyf = Cm.float(), dy.float()
+    if pad:
+        Cf, dyf = (torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in (Cf, dyf))
+    dyc = _chunks(dyf, nc, q)  # (B,H,nc,Q,P)
     Cc = _chunks(Cf.repeat_interleave(rep, dim=2), nc, q)
-    dtc = _chunks(dtf[..., None], nc, q)[..., 0]  # (B,H,nc,Q)
-    cum = torch.cumsum(dtc * Af[None, :, None, None], dim=-1)
-    total = cum[..., -1]  # (B,H,nc)
+    if states is None:
+        S_in = _incoming_states(xc, Bc, dtc, cum, total, initial_state)  # (B,H,nc,P,N)
+    else:
+        if states[0].shape != (b, nc, h, p, n) or states[1].shape != (b, h, nc):
+            raise ValueError(f"ssd_scan_bwd_ref: states must be {(b, nc, h, p, n)} and "
+                             f"{(b, h, nc)} at block_q={q}, not {tuple(states[0].shape)} and "
+                             f"{tuple(states[1].shape)}")
+        S_in, total = states[0].float().transpose(1, 2).contiguous(), states[1].float()
     w = dtc * torch.exp(total[..., None] - cum)
     ecum = torch.exp(cum)
 
-    # the incoming state of every chunk, then the outgoing state gradients
-    contrib = torch.einsum("bhcq,bhcqp,bhcqn->bhcpn", w, xc, Bc)
-    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-             if initial_state is None else initial_state.float())
-    s_in = []
-    for c in range(nc):
-        s_in.append(state)
-        state = state * torch.exp(total[:, :, c])[..., None, None] + contrib[:, :, c]
+    # the outgoing state gradient of every chunk, walking back from the last
     dsum = torch.einsum("bhcq,bhcqp,bhcqn->bhcpn", ecum, dyc, Cc)
     grad = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
             if dstate_final is None else dstate_final.float())
@@ -172,7 +225,7 @@ def ssd_scan_bwd_ref(
     for c in reversed(range(nc)):
         g_out[c] = grad
         grad = grad * torch.exp(total[:, :, c])[..., None, None] + dsum[:, :, c]
-    S_in, G = torch.stack(s_in, dim=2), torch.stack(g_out, dim=2)  # (B,H,nc,P,N)
+    G = torch.stack(g_out, dim=2)  # (B,H,nc,P,N)
 
     # within each chunk: L above the diagonal is 0, its exponent -inf before the exp
     tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()

@@ -49,6 +49,9 @@ FLASH_CASES = [
     # past D = 128: D = 192 (padded to 256) and D = 256
     (1, 96, 4, 2, 192, True, "float32"),
     (1, 80, 2, 1, 256, True, "bfloat16"),
+    # past D = 256 (the reference pads D to 384; the port's wide-D kernels)
+    (1, 96, 2, 1, 320, True, "float32"),
+    (1, 70, 4, 2, 257, False, "bfloat16"),
 ]
 # the last three: mamba2's gated norm (1536), zamba2's (4096), pixtral's and
 # llama4-scout's model width (5120)
@@ -80,17 +83,28 @@ SSD_CASES = [
     (1, 2048, 16, 128, 8, 256, True, "bfloat16"),
     (1, 2048, 16, 128, 8, 256, False, "float32"),
 ]
-# the backward's cases: the forward's, and the mamba2-130m and zamba2-1.2b
-# training shapes (2 x 2048 tokens) in both types
+# the backward's cases: the forward's, the mamba2-130m and zamba2-1.2b
+# training shapes (2 x 2048 tokens) in both types, and the shapes below
 SSD_BWD_CASES = SSD_CASES + [
     (2, 2048, 24, 64, 1, 128, False, "bfloat16"),
     (2, 2048, 24, 64, 1, 128, False, "float32"),
     (2, 2048, 64, 64, 1, 64, False, "bfloat16"),
     (2, 2048, 64, 64, 1, 64, False, "float32"),
+    # N % 4 != 0 (element accesses) in 8 groups; groups of 3 heads (clusters
+    # of one head, three partials a group for the reduce)
+    (1, 130, 16, 64, 8, 30, True, "bfloat16"),
+    (1, 130, 16, 64, 8, 30, True, "float32"),
+    (2, 100, 6, 32, 2, 6, True, "bfloat16"),
+    (2, 100, 6, 32, 2, 6, False, "float32"),
 ]
 # D past 128 on the card: the kD = 256 kernels (D = 192 padded to 256)
 FLASH_WIDE_CASES = [(1, 300, 8, 4, 256, True, "bfloat16"), (1, 130, 4, 2, 192, False, "bfloat16"),
                     (2, 97, 4, 2, 256, True, "float32"), (1, 130, 4, 2, 192, False, "float32")]
+# past the tile kernels' D = 256 on the card: the wide-D kernels, each D in
+# both types, causal and not, with GQA
+FLASH_PAST_TILE_CASES = [(1, 130, 4, 2, 257, True, "float32"), (1, 130, 4, 2, 257, False, "bfloat16"),
+                         (2, 96, 4, 1, 320, False, "float32"), (1, 96, 4, 4, 320, True, "bfloat16"),
+                         (1, 200, 4, 2, 512, True, "float32"), (1, 200, 4, 2, 512, True, "bfloat16")]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -477,15 +491,32 @@ class TestKernelsOnCard:
             for x, y in zip(first, again):
                 assert torch.equal(x, y)
 
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    def test_flash_refuses_d_past_the_cap(self, cuda, dtype):
-        # D > 256 raises on the card, naming the cap, forward and backward
-        q = torch.zeros((1, 8, 2, 257), device=cuda, dtype=TORCH_DT[dtype])
-        with pytest.raises(ValueError, match="D <= 256"):
-            flash_ops.flash_attention(q, q, q, causal=True)
-        lse = torch.zeros((1, 2, 8), device=cuda)
-        with pytest.raises(ValueError, match="D <= 256"):
-            flash_ops.flash_attention_bwd(q, q, q, q, lse, q, causal=True)
+    @pytest.mark.parametrize("b,s,h,kv,d,causal,dtype", FLASH_PAST_TILE_CASES)
+    def test_flash_past_the_tile_kernels(self, cuda, b, s, h, kv, d, causal, dtype):
+        # D > 256 runs the wide-D kernels, forward and backward, against the
+        # plain versions; the backward repeats bit for bit
+        shapes = [(b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d)]
+        q, k, v, do = (torch.from_numpy(_normal(i, shp)).to(cuda, TORCH_DT[dtype])
+                       for i, shp in enumerate(shapes))
+        wide = flash_ops.launches_wide, flash_ops.launches_wide_bwd
+        out, lse = flash_ops.flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
+        want_out, want_lse = attention_ref(q.movedim(1, 2), k.movedim(1, 2), v.movedim(1, 2),
+                                           causal=causal, return_lse=True)
+        tol = FLASH_TOL[dtype]
+        torch.testing.assert_close(out.float(), want_out.movedim(1, 2).float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+        grads = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        assert (flash_ops.launches_wide, flash_ops.launches_wide_bwd) == (wide[0] + 1, wide[1] + 1)
+        want = attention_bwd_ref(q.movedim(1, 2), k.movedim(1, 2), v.movedim(1, 2),
+                                 out.movedim(1, 2), lse, do.movedim(1, 2), causal=causal)
+        tol = BWD_TOL[dtype]
+        for got, w in zip(grads, want):
+            assert got.dtype == q.dtype
+            torch.testing.assert_close(got.float(), w.movedim(1, 2).float(), atol=tol, rtol=tol)
+        for _ in range(2):
+            again = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+            assert all(torch.equal(x, y) for x, y in zip(grads, again))
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("shape", RMS_SHAPES + [(4096, 1024), (65536, 128), (5, 77), (3, 1024)])
@@ -643,6 +674,60 @@ class TestKernelsOnCard:
             torch.testing.assert_close(gt.float(), w, atol=tol * scale, rtol=tol, msg=name)
         again = ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, dy, dstate, init)
         assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+    @pytest.mark.parametrize("b,s,h,p,g,n,with_init,dtype", SSD_BWD_CASES)
+    def test_ssd_scan_bwd_main_path_is_the_standalone_route(self, cuda, b, s, h, p, g, n, with_init,
+                                                            dtype):
+        # the backward given the forward's states (the main path) gives the
+        # bits of the standalone route, which recomputes them, and so does
+        # autograd through ssd_scan; neither allocates per-head (B, S, H, N)
+        # shares, and the main path no recompute workspace
+        x = torch.from_numpy(_normal(1, (b, s, h, p))).to(cuda, TORCH_DT[dtype])
+        dt = torch.nn.functional.softplus(torch.from_numpy(_normal(2, (b, s, h)))).to(cuda) * 0.05 + 0.001
+        A = -torch.exp(torch.from_numpy(_normal(3, (h,))).to(cuda) * 0.3)
+        bm, cm = (torch.from_numpy(_normal(i, (b, s, g, n)) * 0.3).to(cuda, TORCH_DT[dtype]) for i in (4, 5))
+        init = torch.from_numpy(_normal(6, (b, h, p, n)) * 0.5).to(cuda) if with_init else None
+        dy = torch.from_numpy(_normal(9, (b, s, h, p))).to(cuda, TORCH_DT[dtype])
+        dstate = torch.from_numpy(_normal(10, (b, h, p, n))).to(cuda) if with_init else None
+        y, fs, states = ssd_ops.ssd_scan_with_states(x, dt, A, bm, cm, initial_state=init)
+        want_y, want_fs = ssd_ops.ssd_scan(x, dt, A, bm, cm, initial_state=init)
+        assert torch.equal(y, want_y) and torch.equal(fs, want_fs)
+        main = ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, dy, dstate, init, states=states)
+        torch.cuda.synchronize()
+        scratch = ssd_ops.last_bwd_scratch
+        assert "ws" not in scratch and all(shape != (b, s, h, n) for shape, _ in scratch.values())
+        alone = ssd_ops.ssd_scan_bwd(x, dt, A, bm, cm, dy, dstate, init)
+        assert "ws" in ssd_ops.last_bwd_scratch
+        assert all(torch.equal(u, v) for u, v in zip(main, alone))
+        leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, bm, cm)]
+        yl, fl = ssd_ops.ssd_scan(*leaves, initial_state=init)
+        outs, cots = ([yl, fl], [dy, dstate]) if with_init else ([yl], [dy])
+        auto = torch.autograd.grad(outs, leaves, cots)
+        assert all(torch.equal(u, v) for u, v in zip(auto, alone[:5]))
+
+    def test_ssd_remat_gives_the_same_gradients(self, cuda):
+        # a bf16 grad step of mamba2-smoke with remat on (the forward runs
+        # again and the backward takes the rerun's states) and off (the first
+        # forward's): the same bits in every gradient
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.data import DataConfig, make_batch
+        from repro_torch.models import init_params, model_spec
+        from repro_torch.models.layers import tree_leaves
+        from repro_torch.runtime import make_grad_step
+
+        cfg = get_smoke_config("mamba2-130m").scaled(dtype=torch.bfloat16)
+        params = init_params(torch.Generator(device=cuda).manual_seed(0), model_spec(cfg), device=cuda)
+        data = DataConfig(vocab=cfg.vocab, seq_len=256, batch_size=2, n_shards=1, seed=0)
+        batch = {k: torch.from_numpy(v.astype(np.int64)).to(cuda)
+                 for k, v in make_batch(data, 0, 0).items()}
+        launches = ssd_ops.launches_bwd
+        (g_on, m_on), (g_off, m_off) = (make_grad_step(cfg.scaled(remat=r))(params, batch)
+                                        for r in (True, False))
+        torch.cuda.synchronize()
+        assert ssd_ops.launches_bwd == launches + 2 * cfg.n_layers
+        assert torch.equal(m_on["loss"], m_off["loss"])
+        for a, b in zip(tree_leaves(g_on), tree_leaves(g_off)):
+            assert torch.equal(a, b)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_ssd_scan_reads_strided_inputs_at_width(self, cuda, dtype):

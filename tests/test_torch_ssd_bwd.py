@@ -14,10 +14,14 @@ tolerance):
 at the three shapes of ``tests/test_torch_ssd.py`` and a ragged one (S = 50,
 not a multiple of the chunk of 16, in two groups), each from a zero and from
 a drawn initial state, with the final state's cotangent None and drawn.
-Then: the result does not depend on the chunk, a None cotangent is zeros,
-and the ``ssd_scan`` op on CPU tensors is autograd of the plain version (its
-``ssd_scan_bwd`` the plain backward cast to the inputs' dtype), with no
-launch counted. The CUDA kernel is held against ``ssd_scan_bwd_ref`` on the
+The same holds with the chunk states given (``states``, what the forward
+keeps on the card's main path, here ``ssd_chunk_states_ref``'s), which must
+give the recompute's bits. Then: the result does not depend on the chunk, a
+None cotangent is zeros, and the ``ssd_scan`` op on CPU tensors is autograd
+of the plain version (its ``ssd_scan_bwd`` the plain backward cast to the
+inputs' dtype, with or without states), with no launch counted; and the
+backward's scratch on the card (``bwd_scratch``, computed from shapes)
+holds no per-head (B, S, H, N) share and, given states, no recompute. The CUDA kernel is held against ``ssd_scan_bwd_ref`` on the
 card in ``tests/test_torch_kernels.py`` (``gpu`` cases).
 
 Every input is drawn from a seeded numpy generator.
@@ -31,7 +35,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.models.ssm import ssd_chunked as j_ssd_chunked  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_ref, ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_states_ref, ssd_scan_bwd_ref,  # noqa: E402
+                                              ssd_scan_ref)
 
 # (b, s, h, p, g, n, block_q): the CASES of tests/test_torch_ssd.py, then a
 # ragged S (50 = 3 x 16 + 2) in two groups
@@ -99,6 +104,44 @@ def test_plain_backward_matches_jax_vjp(b, s, h, p, g, n, bq, with_init, with_ds
 
 
 @pytest.mark.parametrize("b,s,h,p,g,n,bq,with_init,with_dstate", CASES)
+def test_plain_backward_with_states_is_its_recompute(b, s, h, p, g, n, bq, with_init, with_dstate):
+    x, dt, A, Bm, Cm = map(torch.from_numpy, _inputs(13, b, s, h, p, g, n))
+    dy, dstate, init = map(_t, _cotangents(14, b, s, h, p, n, with_init, with_dstate))
+    states = ssd_chunk_states_ref(x, dt, A, Bm, block_q=bq, initial_state=init)
+    nc = -(-s // min(bq, s))
+    assert states[0].shape == (b, nc, h, p, n) and states[1].shape == (b, h, nc)
+    want = ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dstate, init, block_q=bq)
+    got = ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dstate, init, block_q=bq, states=states)
+    for name, gt, w in zip(GRADS, got, want):
+        assert torch.equal(gt, w), name
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,bq,with_init,with_dstate", CASES)
+def test_plain_backward_with_states_matches_jax_vjp(b, s, h, p, g, n, bq, with_init, with_dstate):
+    arrs = _inputs(25, b, s, h, p, g, n)
+    dy, dstate, init = _cotangents(26, b, s, h, p, n, with_init, with_dstate)
+    j_init = jnp.asarray(init if with_init else np.zeros((b, h, p, n), np.float32))
+    _, vjp = jax.vjp(lambda x, dt, A, Bm, Cm, st: j_ssd_chunked(x, dt, A, Bm, Cm, bq, st),
+                     *map(jnp.asarray, arrs), j_init)
+    want = vjp((jnp.asarray(dy), jnp.zeros((b, h, p, n), jnp.float32) if dstate is None
+                else jnp.asarray(dstate)))
+    x, dt, A, Bm, Cm = map(torch.from_numpy, arrs)
+    states = ssd_chunk_states_ref(x, dt, A, Bm, block_q=bq, initial_state=_t(init))
+    got = ssd_scan_bwd_ref(x, dt, A, Bm, Cm, torch.from_numpy(dy), _t(dstate), _t(init), block_q=bq,
+                           states=states)
+    for name, gt, w in zip(GRADS, got, want):
+        _leaf_close(gt, w, name)
+
+
+def test_states_of_the_wrong_chunk_raise():
+    x, dt, A, Bm, Cm = map(torch.from_numpy, _inputs(27, 1, 100, 4, 8, 2, 8))
+    dy = torch.from_numpy(_cotangents(28, 1, 100, 4, 8, 8, False, False)[0])
+    states = ssd_chunk_states_ref(x, dt, A, Bm, block_q=32)
+    with pytest.raises(ValueError, match="block_q=64"):
+        ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, block_q=64, states=states)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,bq,with_init,with_dstate", CASES)
 def test_plain_backward_matches_autograd(b, s, h, p, g, n, bq, with_init, with_dstate):
     x, dt, A, Bm, Cm = map(torch.from_numpy, _inputs(15, b, s, h, p, g, n))
     dy, dstate, init = map(_t, _cotangents(16, b, s, h, p, n, with_init, with_dstate))
@@ -162,3 +205,50 @@ def test_op_backward_on_the_cpu_casts_to_the_input_dtype():
     assert all(w.dtype == torch.float32 for w in want)
     for name, gt, w in zip(GRADS, got, want):
         assert torch.equal(gt, w.to(gt.dtype)), name
+
+
+def test_op_backward_on_the_cpu_takes_the_forwards_states():
+    # ssd_scan_with_states gives the outputs of ssd_scan and the states its
+    # backward takes on this device; given them, the plain backward's bits
+    x, dt, A, Bm, Cm = map(torch.from_numpy, _inputs(29, 1, 70, 4, 8, 2, 8))
+    dy, dstate, init = map(_t, _cotangents(30, 1, 70, 4, 8, 8, True, True))
+    y, st, states = ssd_ops.ssd_scan_with_states(x, dt, A, Bm, Cm, block_q=16, initial_state=init)
+    want_y, want_st = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, block_q=16, initial_state=init)
+    assert torch.equal(y, want_y) and torch.equal(st, want_st)
+    launches = ssd_ops.launches_bwd
+    got = ssd_ops.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate, init, block_q=16, states=states)
+    assert ssd_ops.launches_bwd == launches
+    for name, gt, w in zip(GRADS, got, ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dstate, init,
+                                                         block_q=16)):
+        assert torch.equal(gt, w), name
+
+
+# (b, s, h, g, p, n, gs_parts, npart): the mamba2-130m and zamba2-1.2b
+# training shapes, then the card sweep's groups, P and N (N % 4 != 0: one
+# element a pass thread)
+SCRATCH_SHAPES = [
+    (2, 2048, 24, 1, 64, 128, 8, 3),
+    (2, 2048, 64, 1, 64, 64, 4, 8),
+    (1, 2048, 16, 8, 128, 256, 32, 1),
+    (2, 200, 8, 2, 32, 32, 1, 1),
+    (1, 130, 4, 2, 40, 16, 1, 1),
+    (3, 1, 6, 3, 16, 256, 4, 1),
+    (2, 50, 12, 1, 8, 6, 1, 3),
+]
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n,gs_parts,npart", SCRATCH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_scratch_holds_no_per_head_shares(b, s, h, g, p, n, gs_parts, npart, dtype):
+    assert ssd_ops.bwd_parts(h, g, p, n) == (gs_parts, npart)
+    nc = -(-s // ssd_ops.CHUNK)
+    for recompute in (False, True):
+        scratch = ssd_ops.bwd_scratch(b, s, h, g, p, n, dtype, recompute)
+        assert all(shape != (b, s, h, n) for shape, _ in scratch.values()), scratch
+        # the state gradients once in f32, and in bf16 once more as operands
+        f32_states = [k for k, (sh, dt) in scratch.items() if sh == (b, nc, h, p, n) and dt == torch.float32]
+        assert f32_states == (["ws", "ws_g"] if recompute else ["ws_g"])
+        assert ("g_op" in scratch) == (dtype == torch.bfloat16)
+        assert ("db_part" in scratch) == (npart > 1)
+        if npart > 1:
+            assert scratch["db_part"] == ((b, s, g, npart, n), torch.float32)
