@@ -131,7 +131,28 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 16. One zamba2-1.2b grad job at full width (38 layers, 2 x 2048 tokens)
     through ``make_grad_step``: ssd_scan, rmsnorm, flash_attention and
     swiglu, forward and backward, all launched; profiled as phase 13's.
-Every main path (phases 3, 5, 7, 9, 11, 13, 15, 16) must launch no
+17-21. Serve the rest of the decoder zoo at full width with phase 3's
+    traffic, each model's f32 tree dropped once the server holds its bf16
+    copy: phi4-mini-3.8b (all 32 layers), command-r-plus-104b (2 of 64:
+    d = 12288, d_ff = 33792), qwen3-moe-235b-a22b (2 of 94: 128 experts
+    top-8, qk-norm), llama4-scout-17b-a16e (2 of 48: 16 experts top-1 and a
+    shared expert) and minicpm3-4b (all 62: MLA, its attention at D = 96);
+    counters zeroed before and read after: rmsnorm, swiglu (exactly one
+    launch a layer a forward, two for llama4: every MoE launch is on the
+    expert buffer) and flash (every minicpm3 launch at D = 96) launched, no
+    ssd_scan and no wide-D flash kernel. Each: serving numbers and the
+    profiles of phase 3, then its f32 prefill logits on the card against
+    the CPU at 2 layers (phi4, minicpm3) or 1 (the others). Phase 19 also
+    prints the MoE capacity of a prefill and of a decode step.
+22. The f32 grad step of phase 6, card against CPU, for the qwen3-moe,
+    llama4 and minicpm3 smoke configs (1 x 256 tokens), and each one's bf16
+    grad step (2 x 256 tokens) repeated: the same bits.
+23. The remat policies: a bf16 grad step (2 x 2048 tokens, remat on) of
+    qwen3-0.6b at full width with 2 layers and with all 28, and of the
+    qwen3-moe smoke config
+    under "nothing", "dots_nb" and "dots": the same bits under all three,
+    and each one's peak memory above the parameters and busy time.
+Every main path (phases 3, 5, 7, 9, 11, 13, 15, 16, 17-21) must launch no
 wide-D flash kernel.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
@@ -141,7 +162,9 @@ compression run (phase 8) for the int8 kernels and of the mamba2 serving
 run (phase 9) for ssd_scan and of the f32 grad step (phase 6) for the f32
 flash rows ``flash_attention_f32`` and ``flash_attention_bwd_f32``;
 ``launches_serve`` and ``launches_train_loop``, the serving run's and the
-training loop's, where the kernel runs there, and for ssd_scan
+training loop's, where the kernel runs there, ``launches_serve_zoo`` phases
+17-21's; the rows ``flash_attention_mla`` (D = 96) and ``swiglu_moe`` (the
+expert buffer) phase 21's and 19's launches; and for ssd_scan
 ``launches_serve_zamba2``, phase 11's, and ``launches_train``,
 ``launches_train_loop`` and ``launches_train_zamba2``, phases 13, 15 and
 16's; ``ssd_scan_bwd``'s ``launches`` are phase 13's, and its row carries
@@ -444,11 +467,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import reset_ids
     from repro_torch.data import DataConfig, make_batch
     from repro_torch.kernels import _build
@@ -467,6 +491,8 @@ def main() -> int:
     from repro_torch.models import hybrid_layout, init_cache, init_params, model_spec, ssm_config
     from repro_torch.checkpoint.checkpointer import _checksum as checkpoint_sha256
     from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.moe import dispatch_shape
+    from repro_torch.models.transformer import moe_config
     from repro_torch.optim import AdamWConfig, compress_tree, compressed_bytes, decompress_tree
     from repro_torch.runtime import (BatchServer, GridTrainer, Request, ServeMetrics,
                                      grad_comparator, make_decode_step, make_grad_step,
@@ -601,10 +627,12 @@ def main() -> int:
                      (x, sc), tol, 2 * rows * width * es + 4 * width, 4 * rows * width,
                      PEAK_OPS["float32"])
 
-    def check_swiglu(rows, width, dtype, tol):
-        g, u = randn(rows, width, dtype=dtype), randn(rows, width, dtype=dtype)
-        n = rows * width
-        return check("swiglu", f"({rows}, {width})", dtype, swiglu_ops.swiglu, swiglu_ref,
+    def check_swiglu(rows, width, dtype, tol, lead=()):
+        """(rows, width), or (*lead, rows, width): an MoE expert buffer."""
+        shape = (*lead, rows, width)
+        g, u = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+        n = math.prod(shape)
+        return check("swiglu", str(shape), dtype, swiglu_ops.swiglu, swiglu_ref,
                      lambda g, u: F.silu(g) * u, (g, u), tol, 3 * n * esize(dtype), 6 * n,
                      PEAK_OPS["float32"])
 
@@ -683,6 +711,8 @@ def main() -> int:
         check_rms(s_max, width, bf, 2e-2)
     for width in (3072, 5120, 12288):
         check_rms(300, width, bf, 2e-2)
+    for width in (2560, 256):  # minicpm3-4b's model width and kv latent (its q latent: 768)
+        check_rms(s_max, width, bf, 2e-2)
     check_rms(64, 20000, bf, 2e-2)
     check_rms(64, 20000, f32, 1e-5)
     check_rms(s_max, 1000, bf, 2e-2)
@@ -692,6 +722,18 @@ def main() -> int:
     check_swiglu(s_max, ff, bf, 2e-2)
     check_swiglu(SLOTS, ff, bf, 2e-2)  # decode
     check_swiglu(64, ff, f32, 1e-6)
+    # the experts' buffer (E, C, d_expert) of qwen3-moe-235b-a22b (phase 19's
+    # prefill and decode alike) and llama4-scout-17b-a16e's at a 700-token
+    # prefill (phase 20); its own row
+    results["swiglu_moe"] = check_swiglu(128, 1536, bf, 2e-2, lead=(128,))
+    check_swiglu(56, 8192, bf, 2e-2, lead=(16,))
+    check_swiglu(8, 8192, bf, 2e-2, lead=(16,))  # llama4's decode step
+    # the zoo's dense MLPs at a 700-token prefill: phi4-mini's and llama4's
+    # shared expert (8192), command-r-plus's (33792), minicpm3's (6400); a
+    # decode step's shared expert
+    for width in (8192, 33792, 6400):
+        check_swiglu(s_max, width, bf, 2e-2)
+    check_swiglu(SLOTS, 8192, bf, 2e-2)
     results["flash_attention"] = check_flash(TRAIN_SEQ, H, KV, hd, bf, 2e-2, b=TRAIN_BATCH,
                                              with_lse=True)
     check_flash(300, H, KV, hd, bf, 2e-2)
@@ -707,6 +749,14 @@ def main() -> int:
     check_flash(256, 8, 2, 128, bf, 2e-2, causal=False)
     check_flash(150, 4, 2, 48, bf, 2e-2, layout="fused")
     check_flash(130, 4, 2, 40, bf, 2e-2, layout="wide")
+    # the zoo's GQA prefills at D = 128 (groups of 3, 12, 16 and 5 query
+    # heads a kv head): phi4-mini, command-r-plus, qwen3-moe, llama4-scout
+    for heads, kv in ((24, 8), (96, 8), (64, 4), (40, 8)):
+        check_flash(s_max, heads, kv, 128, bf, 2e-2)
+    # MLA's q/k width (V padded to it): minicpm3-4b's prefill, D = 96 padded
+    # to 128 (phase 21; its own row), and its smoke size, D = 24 padded to 64
+    results["flash_attention_mla"] = check_flash(s_max, 40, 40, 96, bf, 2e-2)
+    check_flash(130, 4, 4, 24, bf, 2e-2)
     # the scalar f32 kernel at the training shape: its own row
     results["flash_attention_f32"] = check_flash(TRAIN_SEQ, H, KV, hd, f32, 2e-5, b=TRAIN_BATCH,
                                                  with_lse=True)
@@ -762,11 +812,12 @@ def main() -> int:
                 f"{json.dumps(split_ms)} ({rms_ops.bwd_parts(rows, width)} blocks of partials)")
         return rec
 
-    def check_swiglu_bwd(rows, width, dtype, tol):
-        g, u, dh = (randn(rows, width, dtype=dtype) for _ in range(3))
-        n = rows * width
+    def check_swiglu_bwd(rows, width, dtype, tol, lead=()):
+        shape = (*lead, rows, width)
+        g, u, dh = (randn(*shape, dtype=dtype) for _ in range(3))
+        n = math.prod(shape)
         lib = autograd_bwd(lambda g, u: F.silu(g) * u, (g, u), dh)
-        return check("swiglu_bwd", f"({rows}, {width})", dtype, swiglu_ops.swiglu_bwd,
+        return check("swiglu_bwd", str(shape), dtype, swiglu_ops.swiglu_bwd,
                      swiglu_bwd_ref, lib, (g, u, dh), tol, 5 * n * esize(dtype), 14 * n,
                      PEAK_OPS["float32"])
 
@@ -834,6 +885,7 @@ def main() -> int:
     check_rms_bwd(n_tok, d, bf, 2e-2, misaligned=True)
     results["swiglu_bwd"] = check_swiglu_bwd(n_tok, ff, bf, 2e-2)
     check_swiglu_bwd(n_tok, ff, f32, 1e-5)
+    check_swiglu_bwd(128, 1536, bf, 2e-2, lead=(128,))  # qwen3-moe's expert buffer
     results["flash_attention_bwd"] = check_flash_bwd(TRAIN_BATCH, TRAIN_SEQ, H, KV, hd, bf, 2e-2)
     # f32 at 1e-4: dQ, dK and dV sum up to 2048 keys or queries per element
     results["flash_attention_bwd_f32"] = check_flash_bwd(TRAIN_BATCH, TRAIN_SEQ, H, KV, hd, f32, 1e-4)
@@ -847,6 +899,8 @@ def main() -> int:
     check_flash_bwd(1, 256, 8, 2, 128, bf, 2e-2, causal=False)
     check_flash_bwd(1, 150, 4, 2, 48, bf, 2e-2, layout="fused")
     check_flash_bwd(1, 130, 4, 2, 40, bf, 2e-2, layout="wide")
+    check_flash_bwd(1, s_max, 40, 40, 96, bf, 2e-2)  # MLA, minicpm3-4b and its smoke size
+    check_flash_bwd(1, 130, 4, 4, 24, bf, 2e-2)
     # past D = 128: the kD = 256 kernels (dK/dV in two column halves)
     check_flash_bwd(1, TRAIN_SEQ, 8, 4, 256, bf, 2e-2)
     check_flash_bwd(1, 300, 8, 4, 256, bf, 2e-2)
@@ -1114,15 +1168,18 @@ def main() -> int:
         check_ssd_bwd(1, TRAIN_SEQ, 16, 128, 8, 256, dtype, tol, init=True)
 
     # ---- 3. serve at full width -------------------------------------------
-    def serve_full_width(tag, cfg, rng, implied):
+    def serve_full_width(tag, cfg, rng, implied, exact=(), keep_f32=True):
         """Serve N_REQUESTS requests of 64-700 prompt tokens (the first 700),
         MAX_NEW new tokens each, EDF deadlines, through ``BatchServer`` at
         full width from random weights (bf16 compute). Every counter is
         zeroed just before the run and read just after: each forward kernel
-        must show at least ``implied(forwards)[name]`` launches (none where
-        that is 0), and no backward, quorum or int8 kernel may run. Then one
+        must show at least ``implied(forwards)[name]`` launches (exactly
+        that many for the names in ``exact``; none where that is 0), and no
+        backward, quorum, int8 or wide-D flash kernel may run. Then one
         700-token prefill and one decode step under torch.profiler. Returns
-        the forward kernels' launches and the f32 parameters."""
+        the forward kernels' launches and the f32 parameters (None without
+        ``keep_f32``: the f32 tree is dropped once the server holds its
+        compute copy)."""
         # earlier phases leave device tensors in reference cycles (the grid
         # trainer's store): free them, so that the peak memory is this run's
         gc.collect()
@@ -1133,6 +1190,12 @@ def main() -> int:
         torch.cuda.synchronize()
         log(f"[{tag}] params {cfg.param_count()} ({time.perf_counter() - t:.2f} s to init and cast); "
             f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        if not keep_f32:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"[{tag}] f32 tree dropped: memory allocated "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
         # warm-up (cuBLAS handles, allocator): one short request, not counted
         server.submit(Request(id=-1, prompt=rng.integers(0, cfg.vocab, size=16).astype(np.int32),
                               max_new_tokens=2))
@@ -1161,9 +1224,10 @@ def main() -> int:
             assert len(r.tokens_out) == MAX_NEW and all(0 <= t < cfg.vocab for t in r.tokens_out), r.id
         forwards = N_REQUESTS + m.decode_steps
         for name, want in implied(forwards).items():
-            if launches[name] < want or (want == 0 and launches[name]):
+            if launches[name] < want or ((want == 0 or name in exact) and launches[name] != want):
+                implies = 'none' if want == 0 else f"{'exactly' if name in exact else 'at least'} {want}"
                 raise AssertionError(f"{name}: {launches[name]} launches on the serving path, "
-                                     f"the path implies {'none' if want == 0 else f'at least {want}'}")
+                                     f"the path implies {implies}")
         log(f"[{tag}] requests_done {m.requests_done} tokens_generated {m.tokens_generated} "
             f"decode_steps {m.decode_steps} wall_s {m.wall_time:.3f}")
         log(f"[{tag}] prefill_ms_per_request {m.prefill_time / N_REQUESTS * 1e3:.3f} "
@@ -1617,6 +1681,146 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 17-21. serve the rest of the decoder zoo at full width ------------
+    def serve_and_check(tag, cfg, depth, cpu_depth, implied, exact, kernels):
+        """Serve ``cfg`` cut to ``depth`` layers (its widths published) with
+        phase 3's traffic, the f32 tree dropped before serving; then its f32
+        prefill logits on the card against the CPU's at ``cpu_depth`` layers
+        (fresh parameters). Returns the serving run's launches."""
+        served = cfg.scaled(n_layers=depth)
+        log(f"[{tag}] {cfg.name}: {depth} of {cfg.n_layers} layers, d={cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads, attention {cfg.attention}, family {cfg.family}"
+            + (f", {cfg.n_experts} experts top-{cfg.top_k} of d_expert {cfg.d_expert}"
+               + (f" + {cfg.n_shared_experts} shared" if cfg.n_shared_experts else "")
+               if cfg.family == "moe" else f", d_ff {cfg.d_ff}")
+            + f", vocab {cfg.vocab} (padded {cfg.padded_vocab}), rope_theta {cfg.rope_theta}, "
+              f"compute {cfg.dtype}")
+        rng = np.random.default_rng(SEED + int(tag))
+        launches, _ = serve_full_width(tag, served, rng, implied(depth), exact=exact, keep_f32=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut = cfg.scaled(n_layers=cpu_depth, dtype=torch.float32)
+        params = init_params(gen, model_spec(cut), device=dev)
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=64), dtype=torch.long)
+        logits_card_vs_cpu(tag, cut, params, prompt, 1e-3, kernels)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches
+
+    zoo = {}
+    # phi4-mini-3.8b: all 32 layers; dense GQA without qk-norm
+    zoo["phi4-mini-3.8b"] = serve_and_check(
+        "17", get_config("phi4-mini-3.8b"), 32, 2,
+        lambda n: lambda f: {"rmsnorm": (2 * n + 1) * f, "swiglu": n * f,
+                             "flash_attention": n * N_REQUESTS, "ssd_scan": 0},
+        ("swiglu",), list(ops))
+    # command-r-plus-104b: 2 of 64 layers (d = 12288, d_ff = 33792)
+    zoo["command-r-plus-104b"] = serve_and_check(
+        "18", get_config("command-r-plus-104b"), 2, 1,
+        lambda n: lambda f: {"rmsnorm": (2 * n + 1) * f, "swiglu": n * f,
+                             "flash_attention": n * N_REQUESTS, "ssd_scan": 0},
+        ("swiglu",), list(ops))
+    # qwen3-moe-235b-a22b: 2 of 94 layers; qk-norm; one swiglu a layer, the
+    # experts' (so exactly n per forward: every launch is on the expert buffer)
+    qmoe = get_config("qwen3-moe-235b-a22b")
+    mcfg_q = moe_config(qmoe)
+    for label, tokens in (("a 700-token prefill", s_max), ("a 4-slot decode step", SLOTS)):
+        n_assign = tokens * mcfg_q.top_k
+        blocks, cap_block = dispatch_shape(tokens, mcfg_q)
+        cap = cap_block * blocks
+        log(f"[19] {label}: {n_assign} assignments in {blocks} dispatch blocks, capacity {cap}: "
+            f"the experts run over {mcfg_q.n_experts} x {cap} = {mcfg_q.n_experts * cap} rows "
+            f"for {tokens} tokens")
+    zoo["qwen3-moe-235b-a22b"] = serve_and_check(
+        "19", qmoe, 2, 1,
+        lambda n: lambda f: {"rmsnorm": (4 * n + 1) * f, "swiglu": n * f,
+                             "flash_attention": n * N_REQUESTS, "ssd_scan": 0},
+        ("swiglu",), list(ops))
+    # llama4-scout-17b-a16e: 2 of 48 layers; 16 experts top-1 and a shared
+    # expert: two swiglu launches a layer
+    zoo["llama4-scout-17b-a16e"] = serve_and_check(
+        "20", get_config("llama4-scout-17b-a16e"), 2, 1,
+        lambda n: lambda f: {"rmsnorm": (2 * n + 1) * f, "swiglu": 2 * n * f,
+                             "flash_attention": n * N_REQUESTS, "ssd_scan": 0},
+        ("swiglu",), list(ops))
+    # minicpm3-4b: all 62 layers; MLA, its only attention at D = 96 (so
+    # every flash launch is at D = 96); rmsnorm on the model width and both
+    # latents (768, 256)
+    zoo["minicpm3-4b"] = serve_and_check(
+        "21", get_config("minicpm3-4b"), 62, 2,
+        lambda n: lambda f: {"rmsnorm": (4 * n + 1) * f, "swiglu": n * f,
+                             "flash_attention": n * N_REQUESTS, "ssd_scan": 0},
+        ("swiglu", "rmsnorm"), list(ops))
+
+    # ---- 22. MoE and MLA grad steps: card against CPU, and repeats ---------
+    rng = np.random.default_rng(SEED + 22)
+    zoo_grad = {}
+    for i, arch in enumerate(("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e", "minicpm3-4b")):
+        smoke = get_smoke_config(arch)
+        zoo_grad[arch] = grad_card_vs_cpu("22", smoke.scaled(dtype=torch.float32),
+                                          ("rmsnorm_bwd", "swiglu_bwd", "flash_attention_bwd"),
+                                          SEED + 22 + i)
+        # bf16: the same bits on a repeat (the gradient quorum compares replicas)
+        p_bf = init_params(torch.Generator(device=dev).manual_seed(SEED + 22 + i), model_spec(smoke),
+                           device=dev)
+        toks = torch.as_tensor(rng.integers(0, smoke.vocab, size=(2, 257)), device=dev)
+        b_bf = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        step_bf = make_grad_step(smoke)
+        (g1, m1), (g2, m2) = step_bf(p_bf, b_bf), step_bf(p_bf, b_bf)
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(g1), tree_leaves(g2)))
+        log(f"[22] {smoke.name} bf16 grad step (2 x 256 tokens): loss {float(m1['loss']):.6f} aux "
+            f"{float(m1['aux']):.6f}; a repeat gives the same bits: {same}")
+        if not same or not torch.equal(m1["loss"], m2["loss"]) or not torch.isfinite(m1["loss"]):
+            raise AssertionError(f"{smoke.name}: the bf16 grad step does not repeat bit for bit")
+        del p_bf, g1, g2
+
+    # ---- 23. the remat policies: the same bits, what each keeps ------------
+    def remat_policies(tag, cfg):
+        """One bf16 grad step of ``cfg`` (remat on) on TRAIN_BATCH x
+        TRAIN_SEQ tokens under each policy: the grads bit-equal across the
+        three; each policy's peak memory and one profiled step's busy time."""
+        p = init_params(torch.Generator(device=dev).manual_seed(SEED + 23), model_spec(cfg), device=dev)
+        data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, n_shards=1,
+                          seed=SEED)
+        b = {k: torch.from_numpy(v.astype(np.int64)).to(dev) for k, v in make_batch(data, 0, 0).items()}
+        first = None
+        for policy in ("nothing", "dots_nb", "dots"):
+            step = make_grad_step(cfg.scaled(remat=True, remat_policy=policy))
+            step(p, b)  # warm-up: allocator, cuBLAS handles
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            grads, m = step(p, b)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            leaves = tree_leaves(grads)
+            if first is None:
+                first = (m["loss"], leaves)
+            elif not torch.equal(m["loss"], first[0]) or not all(
+                    torch.equal(x, y) for x, y in zip(leaves, first[1])):
+                raise AssertionError(f"{cfg.name}: remat_policy {policy} changed the gradients")
+            del grads, leaves  # one gradient tree besides the first's while profiling
+            dev_us, _ = profile_breakdown(lambda: step(p, b), f"[{tag}] {cfg.name} {policy}", top=3)
+            busy = sum(dev_us.values()) / 1e3 if dev_us else None
+            log(f"[{tag}] {cfg.name} ({cfg.n_layers} layers) remat_policy {policy}: loss "
+                f"{float(m['loss']):.6f}, peak above the params {peak:.3f} GiB, busy "
+                f"{'not measured' if busy is None else f'{busy:.3f} ms'}")
+        log(f"[{tag}] {cfg.name}: the three policies give the same bits")
+        del p, b, first
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # qwen3 at 2 layers, where the step is mostly the 152k-vocab CE, and at
+    # all 28, where the layers' products weigh; qwen3-moe at smoke width and
+    # at full width cut to 1 of 94 layers, where "dots" also keeps the
+    # experts' bmm outputs (its f32 parameters and two gradient trees, ≈ 15
+    # GB each, leave no room for a second layer)
+    for remat_cfg in (cfg.scaled(n_layers=2), cfg, get_smoke_config("qwen3-moe-235b-a22b"),
+                      qmoe.scaled(n_layers=1)):
+        remat_policies("23", remat_cfg)
+
     # ---- result lines ------------------------------------------------------
     replaces = {
         "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:17",
@@ -1635,12 +1839,17 @@ def main() -> int:
         # the f32 scalar flash kernels, run by the f32 checks (phases 4, 6, 10, 12)
         "flash_attention_f32": "src/repro/kernels/flash_attention/kernel.py:30",
         "flash_attention_bwd_f32": "src/repro/kernels/flash_attention/kernel.py:30",
+        # flash at MLA's D = 96 (minicpm3-4b, phase 21) and swiglu over
+        # qwen3-moe's expert buffer (phase 19): rows of their own
+        "flash_attention_mla": "src/repro/kernels/flash_attention/kernel.py:30",
+        "swiglu_moe": "src/repro/kernels/swiglu/kernel.py:12",
         # the wide-D flash kernels (D > 256), both types, run by phase 2 alone
         **{n: "src/repro/kernels/flash_attention/kernel.py:30"
            for n in ("flash_attention_wide", "flash_attention_wide_f32", "flash_attention_bwd_wide",
                      "flash_attention_bwd_wide_f32")},
     }
     sources = {"int8_quantize": "int8_quant", "int8_dequantize": "int8_quant",
+               "flash_attention_mla": "flash_attention", "swiglu_moe": "swiglu",
                **{n: "flash_attention" for n in replaces if "wide" in n}}
     main_launches = {**train_launches, "int8_quantize": comp_launches["int8_quantize"],
                      "int8_dequantize": comp_launches["int8_dequantize"],
@@ -1649,6 +1858,8 @@ def main() -> int:
                      # f32 rows: the f32 grad step's launches (phase 6)
                      "flash_attention_f32": f32_launches["flash_attention"],
                      "flash_attention_bwd_f32": f32_launches["flash_attention_bwd"],
+                     "flash_attention_mla": zoo["minicpm3-4b"]["flash_attention"],
+                     "swiglu_moe": zoo["qwen3-moe-235b-a22b"]["swiglu"],
                      # the wide-D rows: the grid training run's (0; every main path checks 0)
                      **{n: train_launches[n.replace("_f32", "")] for n in replaces if "wide" in n}}
     kernels = []
@@ -1669,10 +1880,18 @@ def main() -> int:
             row["launches_serve"] = launches[name]
         if name in ops or name in bwd_ops:
             row["launches_train_loop"] = loop_launches[name]
+        if name in ops:
+            row["launches_serve_zoo"] = {arch: zoo[arch][name] for arch in zoo}
+        if name == "flash_attention_mla":
+            row["launches_in"] = "phase 21, serving minicpm3-4b (its only attention, D = 96)"
+        if name == "swiglu_moe":
+            row["launches_in"] = "phase 19, serving qwen3-moe-235b-a22b (one swiglu a layer, the experts')"
+            row["launches_serve_llama4"] = zoo["llama4-scout-17b-a16e"]["swiglu"]
         if name.endswith("_f32"):
             row["launches_in"] = "phase 6, the f32 grad step"
         if "wide" in name:
-            row["launches_in"] = "phase 5; every main path (phases 3, 5, 7, 9, 11, 13, 15, 16) launched none"
+            row["launches_in"] = ("phase 5; every main path (phases 3, 5, 7, 9, 11, 13, 15, 16, "
+                                  "17-21) launched none")
         if name == "ssd_scan":
             row["launches_serve"] = mamba_launches[name]
             row["launches_serve_zamba2"] = zamba_launches[name]
@@ -1691,6 +1910,7 @@ def main() -> int:
             row["zamba2_f32"] = {k: ssd_bwd_zamba2_f32[k] for k in ("ms", "standalone_ms", "plain_ms",
                                                                     "bound_ms", "bound_by")}
         kernels.append(row)
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

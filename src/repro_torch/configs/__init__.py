@@ -1,8 +1,11 @@
 """Architecture registry; counterpart of ``repro.configs``.
 
-The reference registers ten architectures. ``qwen3-0.6b`` (dense),
-``mamba2-130m`` (ssm) and ``zamba2-1.2b`` (hybrid) are ported; asking for
-any other raises ``NotImplementedError``.
+The reference registers ten architectures. Eight are ported: the dense
+``qwen3-0.6b``, ``phi4-mini-3.8b`` and ``command-r-plus-104b`` (GQA) and
+``minicpm3-4b`` (MLA), the moe ``qwen3-moe-235b-a22b`` and
+``llama4-scout-17b-a16e``, the ssm ``mamba2-130m`` and the hybrid
+``zamba2-1.2b``. Asking for ``pixtral-12b`` (vlm) or ``hubert-xlarge``
+(audio) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,16 @@ ARCHS: List[str] = [
     "zamba2-1.2b",
 ]
 
-PORTED: List[str] = ["mamba2-130m", "qwen3-0.6b", "zamba2-1.2b"]
+PORTED: List[str] = [
+    "mamba2-130m",
+    "minicpm3-4b",
+    "qwen3-0.6b",
+    "command-r-plus-104b",
+    "phi4-mini-3.8b",
+    "llama4-scout-17b-a16e",
+    "qwen3-moe-235b-a22b",
+    "zamba2-1.2b",
+]
 
 _MODULES: Dict[str, str] = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

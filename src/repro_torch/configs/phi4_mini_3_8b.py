@@ -1,0 +1,31 @@
+"""phi4-mini-3.8b [dense] — RoPE SwiGLU GQA, arXiv:2412.08905.
+
+32L d_model=3072 24H (GQA kv=8) d_ff=8192 vocab=200064; head_dim=128.
+Full attention -> long_500k skipped.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi4-mini-3.8b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=8192,
+    vocab=200064,
+)
+
+SMOKE_CONFIG = CONFIG.scaled(
+    name="phi4-smoke",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    head_dim=16,
+    d_ff=192,
+    vocab=512,
+    attn_chunk=32,
+    remat=False,
+)

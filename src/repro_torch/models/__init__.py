@@ -1,6 +1,6 @@
-"""Model code of the port; counterpart of ``repro.models`` (dense GQA, ssm
-and hybrid families)."""
-from .config import ModelConfig
+"""Model code of the port; counterpart of ``repro.models`` (dense GQA and
+MLA, moe, ssm and hybrid families)."""
+from .config import SHAPES, ModelConfig, ShapeConfig, cell_supported, get_shape
 from .convert import params_from_jax
 from .layers import ParamSpec, count_params, init_params
 from .ssm import SSMConfig
@@ -15,12 +15,16 @@ from .transformer import (
 )
 
 __all__ = [
+    "SHAPES",
     "ModelConfig",
     "ParamSpec",
     "SSMConfig",
+    "ShapeConfig",
     "cache_spec",
+    "cell_supported",
     "count_params",
     "forward",
+    "get_shape",
     "hybrid_layout",
     "init_cache",
     "init_params",

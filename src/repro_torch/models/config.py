@@ -1,14 +1,15 @@
-"""Model configuration; counterpart of ``repro.models.config``.
+"""Model configuration and input-shape cells; counterpart of
+``repro.models.config``.
 
 The fields are the reference's, with torch dtypes in place of the jnp ones.
-The dense (GQA), ssm and hybrid families are ported; ``param_count`` raises
-for the others through ``model_spec``.
+Every family but vlm and audio is ported (dense with GQA or MLA, moe, ssm,
+hybrid); ``param_count`` raises for those two through ``model_spec``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Tuple
 
 import torch
 
@@ -61,6 +62,9 @@ class ModelConfig:
     dtype: Any = torch.bfloat16  # compute dtype
     param_dtype: Any = torch.float32
     remat: bool = True
+    # remat policy: "nothing" (recompute all — smallest memory), "dots_nb"
+    # (save the products with no batch dims), "dots" (save every product);
+    # models/transformer.py maps it to a selective-checkpoint policy
     remat_policy: str = "nothing"
     ce_chunk: int = 512
 
@@ -79,6 +83,15 @@ class ModelConfig:
     @property
     def causal(self) -> bool:
         return not self.encoder_only
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic archs run the long_500k cell (SSM / hybrid)."""
+        return self.family in ("ssm", "hybrid")
 
     @property
     def has_decode(self) -> bool:
@@ -108,3 +121,50 @@ class ModelConfig:
         """MODEL_FLOPS/token for a train step: 6·N_active (fwd+bwd). The grid
         trainer's ``est_flop_count`` per job, and so all credit, comes from it."""
         return 6.0 * self.active_param_count()
+
+    def decode_flops_per_token(self, context: int = 0) -> float:
+        """2·N_active plus attention score/value FLOPs against the context."""
+        f = 2.0 * self.active_param_count()
+        if self.attention == "gqa" and self.n_heads:
+            f += 4.0 * self.n_heads * self.resolved_head_dim * context
+        elif self.attention == "mla":
+            f += 4.0 * self.n_heads * (self.kv_lora_rank + self.qk_rope_dim) * context
+        return f
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell from the assignment."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(f"unknown shape {name}")
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a runnable cell; reason if not."""
+    if shape.kind == "decode" and not cfg.has_decode:
+        return False, "encoder-only architecture has no decode step"
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "full quadratic attention; long_500k skipped per assignment"
+    return True, ""

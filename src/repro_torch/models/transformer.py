@@ -2,34 +2,53 @@
 
 Families ported:
 
-  dense (GQA) : [rmsnorm -> attention (qk-norm, RoPE) -> +res -> rmsnorm ->
-                SwiGLU MLP -> +res] x L
-  ssm         : [rmsnorm -> mamba2 -> +res] x L
-  hybrid      : groups of mamba layers with ONE weight-tied attention+MLP
-                block (no qk-norm) after each group, then the tail layers
+  dense : [rmsnorm -> attention -> +res -> rmsnorm -> SwiGLU MLP -> +res] x L,
+          the attention GQA (qk-norm, RoPE) or MLA
+  moe   : the same with the MoE FFN (+ optional shared expert), whose
+          load-balancing loss each layer returns
+  ssm   : [rmsnorm -> mamba2 -> +res] x L
+  hybrid: groups of mamba layers with ONE weight-tied attention+MLP block
+          (no qk-norm) after each group, then the tail layers
 
-each followed by the final rmsnorm and the tied unembedding. The
-reference's ``lax.scan`` over stacked layer parameters is a Python loop over
-their leading axis (or the two leading axes, groups and layers, of the
-hybrid stack), unbound once (so a gradient through the layers is one stack
-of the per-layer gradients). ``jax.checkpoint`` becomes
-``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, for each
-layer (each group of the hybrid stack) when training with ``cfg.remat`` and
-for each CE chunk of ``train_loss``. A given cache is written in place:
-K/V slices as in the reference's ``dynamic_update_slice``, and each mamba
-layer's state and conv tail replaced by the new ones. MoE, MLA and the
-vlm/audio families are not ported yet.
+each followed by the final rmsnorm and the tied unembedding; the vlm and
+audio families (their frontends) are not ported yet. The reference's
+``lax.scan`` over stacked layer parameters is a Python loop over their
+leading axis (or the two leading axes, groups and layers, of the hybrid
+stack), unbound once (so a gradient through the layers is one stack of the
+per-layer gradients); the aux losses are summed in layer order from zero,
+as the scan's carry sums them. ``jax.checkpoint(..., policy=...)`` becomes
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` with the
+policy ``cfg.remat_policy`` names (``_remat_context``), for each layer
+(each group of the hybrid stack) when training with ``cfg.remat``; each CE
+chunk of ``train_loss`` is a plain checkpoint, as its reference is a bare
+``jax.checkpoint``. A given cache is written in place: K/V slices (or the
+MLA latent and RoPE key) as in the reference's ``dynamic_update_slice``,
+and each mamba layer's state and conv tail replaced by the new ones.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.device import Device, resolve_device
 
-from .attention import AttnConfig, gqa_cache_shape, gqa_forward, gqa_spec
+from .attention import (
+    AttnConfig,
+    MLAConfig,
+    gqa_cache_shape,
+    gqa_forward,
+    gqa_spec,
+    mla_cache_shape,
+    mla_forward,
+    mla_spec,
+)
 from .config import ModelConfig
 from .layers import (
     cross_entropy_from_logits,
@@ -43,14 +62,16 @@ from .layers import (
     tree_map,
     unembed_logits,
 )
+from .moe import MoEConfig, moe_forward, moe_spec
 from .ssm import SSMConfig, mamba2_decode_step, mamba2_forward, mamba2_spec, mamba2_state_shape
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if not (cfg.family in ("ssm", "hybrid") or (cfg.family == "dense" and cfg.attention == "gqa")):
+    if not (cfg.family in ("ssm", "hybrid")
+            or (cfg.family in ("dense", "moe") and cfg.attention in ("gqa", "mla"))):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / attention {cfg.attention!r} is not yet "
-            "ported to repro_torch (dense GQA, ssm and hybrid only)"
+            "ported to repro_torch (dense and moe with gqa or mla, ssm and hybrid only)"
         )
 
 
@@ -63,6 +84,30 @@ def attn_config(cfg: ModelConfig) -> AttnConfig:
         qk_norm=cfg.qk_norm,
         causal=cfg.causal,
         norm_eps=cfg.norm_eps,
+    )
+
+
+def mla_config(cfg: ModelConfig) -> MLAConfig:
+    return MLAConfig(
+        n_heads=cfg.n_heads,
+        q_lora_rank=cfg.q_lora_rank,
+        kv_lora_rank=cfg.kv_lora_rank,
+        qk_nope_dim=cfg.qk_nope_dim,
+        qk_rope_dim=cfg.qk_rope_dim,
+        v_head_dim=cfg.v_head_dim,
+        rope_theta=cfg.rope_theta,
+        norm_eps=cfg.norm_eps,
+    )
+
+
+def moe_config(cfg: ModelConfig) -> MoEConfig:
+    return MoEConfig(
+        d_model=cfg.d_model,
+        d_expert=cfg.d_expert or cfg.d_ff,
+        n_experts=cfg.n_experts,
+        top_k=cfg.top_k,
+        capacity_factor=cfg.capacity_factor,
+        n_shared_experts=cfg.n_shared_experts,
     )
 
 
@@ -87,19 +132,37 @@ def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
     return n_groups, period, tail
 
 
-def _dense_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    return {
-        "attn_norm": rmsnorm_spec(cfg.d_model),
-        "attn": gqa_spec(
+def _attn_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    if cfg.attention == "mla":
+        return mla_spec(
             cfg.d_model,
             cfg.n_heads,
-            cfg.n_kv_heads or cfg.n_heads,
-            cfg.resolved_head_dim,
-            qk_norm=cfg.qk_norm,
-        ),
+            cfg.q_lora_rank,
+            cfg.kv_lora_rank,
+            cfg.qk_nope_dim,
+            cfg.qk_rope_dim,
+            cfg.v_head_dim,
+        )
+    return gqa_spec(
+        cfg.d_model,
+        cfg.n_heads,
+        cfg.n_kv_heads or cfg.n_heads,
+        cfg.resolved_head_dim,
+        qk_norm=cfg.qk_norm,
+    )
+
+
+def _dense_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    spec: Dict[str, Any] = {
+        "attn_norm": rmsnorm_spec(cfg.d_model),
+        "attn": _attn_spec(cfg),
         "mlp_norm": rmsnorm_spec(cfg.d_model),
-        "mlp": mlp_spec(cfg.d_model, cfg.d_ff),
     }
+    if cfg.family == "moe":
+        spec["moe"] = moe_spec(moe_config(cfg))
+    else:
+        spec["mlp"] = mlp_spec(cfg.d_model, cfg.d_ff)
+    return spec
 
 
 def _mamba_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -111,7 +174,7 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     spec: Dict[str, Any] = {}
     if cfg.vocab:
         spec["embed"] = embedding_spec(cfg.padded_vocab, cfg.d_model)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         spec["layers"] = stack_layer_specs(_dense_block_spec(cfg), cfg.n_layers)
     elif cfg.family == "ssm":
         spec["layers"] = stack_layer_specs(_mamba_block_spec(cfg), cfg.n_layers)
@@ -135,6 +198,29 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     return spec
 
 
+# the products a policy may save: "dots_nb" those with no batch dims (a
+# (B, S, d) @ (d, f) projection folds to ``mm``), "dots" the batched ones too
+# (the experts' ``bmm``); the kernels' autograd functions are no aten ops and
+# run again on recompute under every policy
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCH_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+_SAVED_OPS = {
+    "nothing": (),
+    "dots_nb": _NO_BATCH_DOTS,
+    "dots": _NO_BATCH_DOTS + _BATCH_DOTS,
+}
+
+
+def _remat_context(cfg: ModelConfig) -> Callable[[], Any]:
+    """The ``context_fn`` of ``cfg.remat_policy``'s checkpoints: "nothing"
+    recomputes everything; "dots_nb" and "dots" save their products'
+    outputs. An unknown name raises ``KeyError``, as in the reference."""
+    saved = _SAVED_OPS[cfg.remat_policy]
+    if not saved:
+        return noop_context_fn
+    return functools.partial(create_selective_checkpoint_contexts, list(saved))
+
+
 def _dense_block(
     lp: Dict[str, Any],
     x: torch.Tensor,
@@ -142,12 +228,21 @@ def _dense_block(
     positions: torch.Tensor,
     cache: Optional[Dict[str, torch.Tensor]],
     cache_index: Optional[int],
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer: ``(x, aux)``, aux the MoE layer's load-balancing loss (f32
+    zero for an MLP layer)."""
     h = rms_norm(lp["attn_norm"], x, cfg.norm_eps)
-    a, _ = gqa_forward(lp["attn"], h, attn_config(cfg), positions, cache, cache_index)
+    if cfg.attention == "mla":
+        a, _ = mla_forward(lp["attn"], h, mla_config(cfg), positions, cache, cache_index)
+    else:
+        a, _ = gqa_forward(lp["attn"], h, attn_config(cfg), positions, cache, cache_index)
     x = x + a
     h = rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
-    return x + mlp_forward(lp["mlp"], h)
+    if cfg.family == "moe":
+        m, aux = moe_forward(lp["moe"], h, moe_config(cfg))
+    else:
+        m, aux = mlp_forward(lp["mlp"], h), torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + m, aux
 
 
 def _mamba_block(
@@ -181,11 +276,13 @@ def _scan_mamba(
 ) -> torch.Tensor:
     unbound = tree_map(lambda t: t.unbind(0), layers)
     remat = train and cfg.remat
+    context_fn = _remat_context(cfg) if remat else None
     for i in range(n_layers):
         lp = tree_map(lambda t: t[i], unbound)
         lstate = tree_map(lambda t: t[i], state) if state is not None else None
         if remat:
-            x = checkpoint(_mamba_block, lp, x, cfg, lstate, decode, use_reentrant=False)
+            x = checkpoint(_mamba_block, lp, x, cfg, lstate, decode, use_reentrant=False,
+                           context_fn=context_fn)
         else:
             x = _mamba_block(lp, x, cfg, lstate, decode)
     return x
@@ -215,12 +312,14 @@ def _hybrid_forward(
         return h + mlp_forward(shared["mlp"], m_in)
 
     groups = tree_map(lambda t: t.unbind(0), params["groups"])
+    context_fn = _remat_context(cfg) if train and cfg.remat else None
     for gi in range(ng):
         gp = tree_map(lambda t: t[gi], groups)
         gstate = tree_map(lambda t: t[gi], cache["groups_mamba"]) if cache is not None else None
         gattn = tree_map(lambda t: t[gi], cache["groups_attn"]) if cache is not None else None
         if train and cfg.remat:
-            x = checkpoint(group_body, gp, x, gstate, gattn, use_reentrant=False)
+            x = checkpoint(group_body, gp, x, gstate, gattn, use_reentrant=False,
+                           context_fn=context_fn)
         else:
             x = group_body(gp, x, gstate, gattn)
     if tail:
@@ -237,22 +336,25 @@ def forward(
     cache_index: Optional[int] = None,
     return_hidden: bool = False,
     train: bool = False,
-) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Returns (logits (B, S, V_padded) or hidden, cache).
+) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
+    """Returns (logits (B, S, V_padded) or hidden, cache, aux_loss), as the
+    reference does; aux is the MoE layers' load-balancing loss summed in
+    layer order (an f32 zero for the other families).
 
     A given cache is written in place, layer by layer, and returned. With a
     cache and one token, the mamba layers take the O(1) decode step (the
     reference's rule, so a 1-token prompt decodes too). With ``train`` and
     ``cfg.remat`` each layer (each group of a hybrid stack) runs under
-    activation checkpointing, as in the reference. The reference also
-    returns an auxiliary loss, which is zero for these families, and takes
-    embeddings in place of tokens for other input modes."""
+    activation checkpointing with ``cfg.remat_policy``, as in the
+    reference. The reference also takes embeddings in place of tokens for
+    other input modes."""
     _require_ported(cfg)
     x = embed_tokens(params["embed"], tokens, cfg.dtype)
     b, s = x.shape[:2]
     base = cache_index if cache_index is not None else 0
     positions = (base + torch.arange(s, device=x.device))[None, :].expand(b, s)
     decode = cache is not None and s == 1
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         lstate = cache["layers"] if cache is not None else None
         x = _scan_mamba(params["layers"], cfg.n_layers, x, cfg, lstate, decode, train)
@@ -261,19 +363,21 @@ def forward(
     else:
         layers = tree_map(lambda t: t.unbind(0), params["layers"])
         remat = train and cfg.remat
+        context_fn = _remat_context(cfg) if remat else None
         for i in range(cfg.n_layers):
             lp = tree_map(lambda t: t[i], layers)
-            # layer i's K/V are views into the stacked cache: gqa_forward writes them in place
+            # layer i's cache leaves are views into the stacked cache, written in place
             lcache = tree_map(lambda t: t[i], cache["layers"]) if cache is not None else None
             if remat:
-                x = checkpoint(_dense_block, lp, x, cfg, positions, lcache, cache_index,
-                               use_reentrant=False)
+                x, a = checkpoint(_dense_block, lp, x, cfg, positions, lcache, cache_index,
+                                  use_reentrant=False, context_fn=context_fn)
             else:
-                x = _dense_block(lp, x, cfg, positions, lcache, cache_index)
+                x, a = _dense_block(lp, x, cfg, positions, lcache, cache_index)
+            aux = aux + a
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     if return_hidden:
-        return x, cache
-    return unembed_logits(params["embed"], x), cache
+        return x, cache, aux
+    return unembed_logits(params["embed"], x), cache, aux
 
 
 def train_loss(
@@ -282,7 +386,7 @@ def train_loss(
     batch: Dict[str, torch.Tensor],
     ce_chunk: int = 512,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token CE loss + aux (zero for the ported families).
+    """Next-token CE loss + aux (the MoE layers' load-balancing loss).
 
     As in the reference, the loss is computed in sequence chunks with
     rematerialization when ``s > 2 * ce_chunk`` and ``s % ce_chunk == 0``:
@@ -292,10 +396,10 @@ def train_loss(
     tokens = batch["tokens"]
     labels = batch["labels"]
     mask = batch.get("mask")
-    hidden, _ = forward(params, cfg, tokens, train=True, return_hidden=True)
+    hidden, _, aux = forward(params, cfg, tokens, train=True, return_hidden=True)
     b, s, _ = hidden.shape
     ce_chunk = cfg.ce_chunk or ce_chunk
-    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
     ones = (torch.ones((b, s), dtype=torch.float32, device=hidden.device) if mask is None
             else mask.float())
 
@@ -309,7 +413,7 @@ def train_loss(
         return checkpoint(chunk_sums, x_c, labels_c, mask_c, use_reentrant=False)
 
     if s > 2 * ce_chunk and s % ce_chunk == 0:
-        tot_nll, tot_mask = aux, aux
+        tot_nll, tot_mask = zero, zero
         for c0 in range(0, s, ce_chunk):
             sn, sm = sums(hidden[:, c0:c0 + ce_chunk], labels[:, c0:c0 + ce_chunk],
                           ones[:, c0:c0 + ce_chunk])
@@ -328,12 +432,16 @@ def _stack(tree: Any, n: int) -> Any:
 
 def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
     """(shape, dtype) of every decode-cache leaf, stacked over layers (and
-    groups). K/V are in the compute dtype; both mamba state leaves are f32."""
+    groups). K/V (the MLA latent and RoPE key) are in the compute dtype;
+    both mamba state leaves are f32."""
     _require_ported(cfg)
-    if cfg.family == "dense":
-        per = gqa_cache_shape(
-            batch, max_seq, cfg.n_kv_heads or cfg.n_heads, cfg.resolved_head_dim, cfg.dtype
-        )
+    if cfg.family in ("dense", "moe"):
+        if cfg.attention == "mla":
+            per = mla_cache_shape(batch, max_seq, cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.dtype)
+        else:
+            per = gqa_cache_shape(
+                batch, max_seq, cfg.n_kv_heads or cfg.n_heads, cfg.resolved_head_dim, cfg.dtype
+            )
         return {"layers": _stack(per, cfg.n_layers)}
     mstate = mamba2_state_shape(batch, ssm_config(cfg), torch.float32)
     if cfg.family == "ssm":

@@ -52,7 +52,7 @@ def make_train_step(
 def make_prefill_step(cfg: ModelConfig) -> Callable[..., Tuple[torch.Tensor, Any]]:
     @torch.no_grad()
     def prefill_step(params: Dict[str, Any], batch: Dict[str, torch.Tensor], cache: Any):
-        hidden, new_cache = forward(
+        hidden, new_cache, _ = forward(
             params, cfg, batch["tokens"], cache=cache, cache_index=0, return_hidden=True
         )
         # the reference unembeds every position and keeps the last; the rows
@@ -65,6 +65,7 @@ def make_prefill_step(cfg: ModelConfig) -> Callable[..., Tuple[torch.Tensor, Any
 def make_decode_step(cfg: ModelConfig) -> Callable[..., Tuple[torch.Tensor, Any]]:
     @torch.no_grad()
     def decode_step(params: Dict[str, Any], tokens: torch.Tensor, cache: Any, index: int):
-        return forward(params, cfg, tokens, cache=cache, cache_index=index)
+        logits, new_cache, _ = forward(params, cfg, tokens, cache=cache, cache_index=index)
+        return logits, new_cache
 
     return decode_step

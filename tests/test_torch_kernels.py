@@ -57,14 +57,19 @@ FLASH_CASES = [
 # llama4-scout's model width (5120)
 RMS_SHAPES = [(4, 256), (3, 77, 256), (2, 5, 8, 128), (3, 1536), (2, 4096), (2, 5120)]
 SWIGLU_SHAPES = [(16, 128), (5, 100, 128), (1, 7, 384)]
+# the expert buffer (E, C, d_expert) of qwen3-moe-235b-a22b at a 700-token
+# prefill and at a 4-slot decode step alike: 128 experts x 128 slots x 1536
+MOE_EXPERT_BUFFER = (128, 128, 1536)
 # the backward sweep adds GQA with D=48 (ragged lanes) to FLASH_CASES
 FLASH_BWD_CASES = FLASH_CASES + [(1, 130, 4, 2, 48, False, "float32"),
                                  (1, 130, 4, 2, 48, True, "bfloat16")]
 # bf16 cases for the tensor-core kernels on the card: zamba2's shared
 # attention block at its prefill shape, a ragged S with D = 48 (padded to
-# 64), GQA without the causal mask
+# 64), GQA without the causal mask; MLA's q/k width at minicpm3-4b's prefill
+# shape (D = 96, padded to 128) and at its smoke size (D = 24, padded to 64)
 FLASH_BF16_CASES = [(1, 700, 32, 32, 64, True, "bfloat16"), (1, 130, 4, 2, 48, True, "bfloat16"),
-                    (1, 256, 8, 2, 128, False, "bfloat16")]
+                    (1, 256, 8, 2, 128, False, "bfloat16"), (1, 700, 40, 40, 96, True, "bfloat16"),
+                    (1, 130, 4, 4, 24, True, "bfloat16")]
 # (b, s, h, p, g, n, with initial state, dtype): the mamba2 and zamba2
 # prefill shapes, a ragged S, groups, a ragged P tile and N = 256
 SSD_CASES = [
@@ -397,7 +402,7 @@ class TestKernelsOnCard:
         torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("shape", SWIGLU_SHAPES + [(700, 3072)])
+    @pytest.mark.parametrize("shape", SWIGLU_SHAPES + [(700, 3072), MOE_EXPERT_BUFFER])
     def test_swiglu(self, cuda, shape, dtype):
         g = torch.from_numpy(_normal(7, shape)).to(cuda, TORCH_DT[dtype])
         u = torch.from_numpy(_normal(3, shape)).to(cuda, TORCH_DT[dtype])
@@ -477,6 +482,8 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("b,s,h,kv,d,dtype", [(1, 700, 16, 8, 128, "bfloat16"),
                                                   (1, 700, 32, 32, 64, "bfloat16"),
+                                                  (1, 700, 40, 40, 96, "bfloat16"),
+                                                  (1, 130, 4, 4, 24, "bfloat16"),
                                                   (2, 97, 6, 3, 128, "float32")]
                              + [(b, s, h, kv, d, dt) for b, s, h, kv, d, _, dt in FLASH_WIDE_CASES])
     def test_flash_bwd_is_bit_equal_across_calls(self, cuda, b, s, h, kv, d, dtype):
@@ -534,7 +541,7 @@ class TestKernelsOnCard:
         torch.testing.assert_close(ds, want_ds, atol=1e-3, rtol=1e-4)
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("shape", SWIGLU_SHAPES + [(4096, 3072)])
+    @pytest.mark.parametrize("shape", SWIGLU_SHAPES + [(4096, 3072), MOE_EXPERT_BUFFER])
     def test_swiglu_bwd(self, cuda, shape, dtype):
         g, u, dh = (torch.from_numpy(_normal(i, shape)).to(cuda, TORCH_DT[dtype]) for i in (7, 3, 4))
         launches = swiglu_ops.launches_bwd
@@ -750,3 +757,55 @@ class TestKernelsOnCard:
         torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
         torch.testing.assert_close(state, want_state, atol=1e-4 if dtype == "float32" else tol,
                                    rtol=1e-4 if dtype == "float32" else tol)
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA grad steps and the remat policies on the card
+# ---------------------------------------------------------------------------
+
+
+def _smoke_grad_step(cuda, arch, seq=256, **overrides):
+    """A bf16 grad step of ``arch``'s smoke config on the card: its step,
+    parameters and batch."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import init_params, model_spec
+    from repro_torch.runtime import make_grad_step
+
+    cfg = get_smoke_config(arch).scaled(dtype=torch.bfloat16, **overrides)
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), model_spec(cfg), device=cuda)
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, batch_size=2, n_shards=1, seed=0)
+    batch = {k: torch.from_numpy(v.astype(np.int64)).to(cuda) for k, v in make_batch(data, 0, 0).items()}
+    return make_grad_step(cfg), params, batch
+
+
+@pytest.mark.gpu
+class TestModelsOnCard:
+    @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "llama4-scout-17b-a16e", "minicpm3-4b"])
+    def test_moe_and_mla_grad_steps_repeat_bit_for_bit(self, cuda, arch):
+        # the gradient quorum compares replicas: the MoE dispatch (a stable
+        # sort, one write a slot, an ordered combine) and MLA's padded flash
+        # must give the same bits on the same inputs
+        from repro_torch.models.layers import tree_leaves
+
+        step, params, batch = _smoke_grad_step(cuda, arch)
+        before = swiglu_ops.launches_bwd, flash_ops.launches_bwd
+        g1, m1 = step(params, batch)
+        g2, m2 = step(params, batch)
+        torch.cuda.synchronize()
+        assert swiglu_ops.launches_bwd > before[0] and flash_ops.launches_bwd > before[1]
+        assert torch.isfinite(m1["loss"]) and all(torch.equal(m1[k], m2[k]) for k in m1)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g1), tree_leaves(g2)))
+
+    @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen3-moe-235b-a22b"])
+    def test_remat_policies_give_the_same_bits(self, cuda, arch):
+        from repro_torch.models.layers import tree_leaves
+
+        runs = []
+        for policy in ("nothing", "dots_nb", "dots"):
+            step, params, batch = _smoke_grad_step(cuda, arch, remat=True, remat_policy=policy)
+            runs.append(step(params, batch))
+        torch.cuda.synchronize()
+        for grads, m in runs[1:]:
+            assert torch.equal(m["loss"], runs[0][1]["loss"])
+            assert all(torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(runs[0][0])))

@@ -10,7 +10,11 @@ cache, whose entries reach |x| ~ 20 where one bf16 step is 0.125, is held to
 2e-2 of its largest entry, because both packages are that far from the f32
 result there.
 Configs of every ported arch, full and smoke, are compared field by field,
-with ``param_count()`` and ``train_flops_per_token()``.
+with ``param_count()`` and ``train_flops_per_token()``; the derived
+properties, ``decode_flops_per_token`` and ``cell_supported`` over every
+arch and shape cell; and the smoke configs of the two other dense GQA archs
+(phi4-mini, command-r-plus: logits, loss and gradients at f32, the
+gradient leaves to rtol=1e-4 with atol 1e-4 of the leaf's largest entry).
 """
 import dataclasses
 
@@ -25,20 +29,29 @@ from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.configs import get_smoke_config as j_get_smoke_config  # noqa: E402
 from repro.models import forward as j_forward  # noqa: E402
 from repro.models import init_params as j_init_params  # noqa: E402
+from repro.models import SHAPES as J_SHAPES  # noqa: E402
+from repro.models import cell_supported as j_cell_supported  # noqa: E402
 from repro.models import model_spec as j_model_spec  # noqa: E402
+from repro.data.pipeline import DataConfig as JDataConfig  # noqa: E402
+from repro.data.pipeline import make_batch as j_make_batch  # noqa: E402
+from repro.runtime.step_builder import make_grad_step as j_make_grad_step  # noqa: E402
 from repro.models.transformer import init_cache as j_init_cache  # noqa: E402
 from repro.runtime import make_decode_step as j_make_decode_step  # noqa: E402
 from repro.runtime import make_prefill_step as j_make_prefill_step  # noqa: E402
 from repro_torch.configs import ARCHS, PORTED, get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import (  # noqa: E402
+    SHAPES,
+    ModelConfig,
+    cell_supported,
     forward,
+    get_shape,
     init_cache,
     init_params,
     model_spec,
     params_from_jax,
 )
 from repro_torch.models.layers import tree_leaves  # noqa: E402
-from repro_torch.runtime import make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.runtime import make_decode_step, make_grad_step, make_prefill_step  # noqa: E402
 
 ARCH = "qwen3-0.6b"
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4), "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -107,13 +120,49 @@ def test_config_matches_reference(getters, arch):
 
 
 def test_unported_archs_raise():
-    assert set(PORTED) == {"qwen3-0.6b", "mamba2-130m", "zamba2-1.2b"}
+    assert set(ARCHS) - set(PORTED) == {"pixtral-12b", "hubert-xlarge"}
     for arch in ARCHS:
         if arch not in PORTED:
             with pytest.raises(NotImplementedError, match="not yet ported"):
                 get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+
+
+def _port_config(j_cfg):
+    """The port's ModelConfig with the reference's field values (torch
+    dtypes): for the archs the port does not register."""
+    fields = {f.name: getattr(j_cfg, f.name) for f in dataclasses.fields(j_cfg)}
+    for name in ("dtype", "param_dtype"):
+        fields[name] = getattr(torch, jnp.dtype(fields[name]).name)
+    return ModelConfig(**fields)
+
+
+def test_shapes_match_reference():
+    assert [dataclasses.astuple(s) for s in SHAPES] == [dataclasses.astuple(s) for s in J_SHAPES]
+    for s in J_SHAPES:
+        assert get_shape(s.name) == SHAPES[J_SHAPES.index(s)] and get_shape(s.name).tokens == s.tokens
+    with pytest.raises(KeyError):
+        get_shape("no-such-shape")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_derived_properties_and_cells_match_reference(arch):
+    j_cfg = j_get_config(arch)
+    t_cfg = get_config(arch) if arch in PORTED else _port_config(j_cfg)
+    assert t_cfg.is_attention_free == j_cfg.is_attention_free
+    assert t_cfg.supports_long_context == j_cfg.supports_long_context
+    assert t_cfg.has_decode == j_cfg.has_decode
+    for shape in J_SHAPES:
+        assert cell_supported(t_cfg, SHAPES[J_SHAPES.index(shape)]) == j_cell_supported(j_cfg, shape)
+    if arch not in PORTED:  # vlm and audio: no model_spec yet
+        with pytest.raises(NotImplementedError):
+            t_cfg.param_count()
+        return
+    assert t_cfg.param_count() == j_cfg.param_count()
+    assert t_cfg.active_param_count() == j_cfg.active_param_count()
+    for context in (0, 4096, 32768, 524288):
+        assert t_cfg.decode_flops_per_token(context) == j_cfg.decode_flops_per_token(context)
 
 
 # ---------------------------------------------------------------------------
@@ -200,8 +249,32 @@ def test_forward_without_cache_matches_reference(ref_params):
     t_cfg = get_smoke_config(ARCH).scaled(dtype=torch.float32)
     toks = np.random.default_rng(3).integers(0, j_cfg.vocab, size=(2, 37)).astype(np.int32)
     j_logits, _, _ = jax.jit(lambda p, t: j_forward(p, j_cfg, tokens=t))(ref_params, jnp.asarray(toks))
-    logits, cache = forward(params_from_jax(ref_params, "cpu"), t_cfg,
-                            torch.as_tensor(toks, dtype=torch.long))
+    logits, cache, aux = forward(params_from_jax(ref_params, "cpu"), t_cfg,
+                                 torch.as_tensor(toks, dtype=torch.long))
+    assert float(aux) == 0.0
     assert cache is None
     assert logits.shape == (2, 37, j_cfg.padded_vocab)
     np.testing.assert_allclose(_np(logits), _np(j_logits), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "command-r-plus-104b"])
+def test_dense_gqa_archs_match_reference(arch):
+    j_cfg = j_get_smoke_config(arch).scaled(dtype=jnp.float32)
+    t_cfg = get_smoke_config(arch).scaled(dtype=torch.float32)
+    params = jax.tree_util.tree_map(np.asarray, j_init_params(jax.random.PRNGKey(0), j_model_spec(j_cfg)))
+    port = params_from_jax(params, "cpu")
+    toks = np.random.default_rng(5).integers(0, j_cfg.vocab, size=(2, 37)).astype(np.int32)
+    j_logits, _, _ = jax.jit(lambda p, t: j_forward(p, j_cfg, tokens=t))(params, jnp.asarray(toks))
+    logits, _, aux = forward(port, t_cfg, torch.as_tensor(toks, dtype=torch.long))
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(_np(logits), _np(j_logits), rtol=1e-4, atol=1e-4)
+    batch = j_make_batch(JDataConfig(vocab=j_cfg.vocab, seq_len=64, batch_size=2, seed=3), 0, 0)
+    j_grads, j_m = jax.jit(j_make_grad_step(j_cfg))(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    grads, m = make_grad_step(t_cfg)(port, {k: torch.from_numpy(v.astype(np.int64))
+                                            for k, v in batch.items()})
+    for k in ("loss", "ce", "aux"):
+        np.testing.assert_allclose(float(m[k]), float(j_m[k]), rtol=1e-5, atol=1e-5, err_msg=k)
+    for g, w in zip(tree_leaves(grads), jax.tree_util.tree_leaves(j_grads)):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(_np(g), w, rtol=1e-4, atol=1e-4 * np.abs(w).max())

@@ -5,7 +5,11 @@ The 12 requests of ``examples/serve_batch.py`` go through the reference's
 request's token stream, ``requests_done``, ``tokens_generated`` and
 ``decode_steps`` must be identical. EDF admission and ``_merge_slot`` are
 held against the reference's, including the ``batch_slots=1`` quirk (equal
-cache shapes leave the batch cache unchanged).
+cache shapes leave the batch cache unchanged). The same workload also
+goes through a MoE (qwen3-moe-smoke, whose capacity, and so what it
+drops, differs between a prefill and a decode step in both packages alike)
+and an MLA (minicpm3-smoke: rank-3 latent and RoPE-key cache leaves) smoke
+server, with identical token streams.
 """
 import numpy as np
 import pytest
@@ -62,6 +66,24 @@ def test_token_streams_match_reference(setup, slots, n, max_new):
     assert (tm.requests_done, tm.tokens_generated, tm.decode_steps) == (
         jm.requests_done, jm.tokens_generated, jm.decode_steps)
     assert tm.requests_done == n
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "minicpm3-4b"])
+def test_moe_and_mla_token_streams_match_reference(arch):
+    j_cfg = j_get_smoke_config(arch).scaled(dtype=jnp.float32)
+    t_cfg = get_smoke_config(arch).scaled(dtype=torch.float32)
+    params = j_init_params(jax.random.PRNGKey(0), j_model_spec(j_cfg))
+    t_params = params_from_jax(jax.tree_util.tree_map(np.asarray, params), "cpu")
+    j_server = j_serve.BatchServer(j_cfg, params, batch_slots=4, max_seq=128)
+    t_server = serve_loop.BatchServer(t_cfg, t_params, batch_slots=4, max_seq=128, device="cpu")
+    j_reqs, t_reqs = _requests(j_serve, j_cfg.vocab), _requests(serve_loop, t_cfg.vocab)
+    for a, b in zip(j_reqs, t_reqs):
+        j_server.submit(a)
+        t_server.submit(b)
+    jm, tm = j_server.run(), t_server.run()
+    assert [r.tokens_out for r in t_reqs] == [r.tokens_out for r in j_reqs]
+    assert (tm.requests_done, tm.tokens_generated, tm.decode_steps) == (
+        jm.requests_done, jm.tokens_generated, jm.decode_steps) == (12, 132, jm.decode_steps)
 
 
 # ---------------------------------------------------------------------------

@@ -233,7 +233,7 @@ def test_forward_without_cache_matches_reference(arch):
     j_cfg, t_cfg, tree, params = _setup(arch)
     toks = np.random.default_rng(4).integers(0, j_cfg.vocab, size=(2, 37)).astype(np.int32)
     want, _, _ = jax.jit(lambda p, t: j_forward(p, j_cfg, tokens=t))(_j(tree), jnp.asarray(toks))
-    got, cache = forward(params, t_cfg, torch.as_tensor(toks, dtype=torch.long))
+    got, cache, _ = forward(params, t_cfg, torch.as_tensor(toks, dtype=torch.long))
     assert cache is None and got.shape == (2, 37, j_cfg.padded_vocab)
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
 
@@ -305,10 +305,10 @@ def test_decode_matches_full_forward(arch):
     # the reference's test_decode_matches_full_forward, on the port
     _, t_cfg, _, params = _setup(arch)
     toks = torch.as_tensor(np.random.default_rng(6).integers(0, t_cfg.vocab, size=(2, 17)))
-    full, _ = forward(params, t_cfg, toks)
+    full, _, _ = forward(params, t_cfg, toks)
     cache = init_cache(t_cfg, 2, 32, device="cpu")
-    _, cache = forward(params, t_cfg, toks[:, :16], cache=cache, cache_index=0)
-    dec, _ = forward(params, t_cfg, toks[:, 16:17], cache=cache, cache_index=16)
+    _, cache, _ = forward(params, t_cfg, toks[:, :16], cache=cache, cache_index=0)
+    dec, _, _ = forward(params, t_cfg, toks[:, 16:17], cache=cache, cache_index=16)
     a, b = _np(full[:, 16, :t_cfg.vocab]), _np(dec[:, 0, :t_cfg.vocab])
     err = np.max(np.abs(a - b)) / (np.max(np.abs(a)) + 1e-9)
     assert err < 2e-3, f"{arch} decode mismatch {err}"

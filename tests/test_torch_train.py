@@ -9,6 +9,13 @@ not, remat on and off; one and two AdamW updates (params, moments,
 losses, optimizer state and learning rates, rtol=1e-4 with atol=1e-6 for
 gradient leaves (f32 sums over 256 tokens taken in other orders), atol=1e-5
 for the parameters after a train step (see ``test_train_step_matches``).
+
+``remat_policy`` as the reference reads it: an unknown name raises
+``KeyError``; under "nothing", "dots_nb" and "dots" the grads of the qwen3
+and qwen3-moe smoke configs (remat on) equal the reference's under the same
+policy, at the gradient tolerance above, and each other bit for bit (a
+policy only chooses what is saved and what is computed again), and so do
+the zamba2-smoke hybrid stack's (its groups and tail checkpointed).
 """
 import dataclasses
 
@@ -31,8 +38,13 @@ from repro.runtime.step_builder import make_grad_step as j_make_grad_step  # noq
 from repro.runtime.step_builder import make_train_step as j_make_train_step  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.data import DataConfig, DataShard, make_batch  # noqa: E402
-from repro_torch.models import params_from_jax  # noqa: E402
-from repro_torch.models.layers import cross_entropy_from_logits, tree_leaves  # noqa: E402
+from repro_torch.models import init_params, model_spec, params_from_jax  # noqa: E402
+from repro_torch.models.layers import (  # noqa: E402
+    cross_entropy_from_logits,
+    tree_leaves,
+    tree_unflatten,
+)
+from repro_torch.models.transformer import train_loss  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import make_grad_step, make_train_step  # noqa: E402
 
@@ -219,3 +231,91 @@ def test_grad_step_on_the_card_matches_the_cpu(ref_params, batch):
     np.testing.assert_allclose(float(m["loss"]), float(cpu_m["loss"]), rtol=1e-5)
     for g, w in zip(_leaves(grads), _leaves(cpu_grads)):
         np.testing.assert_allclose(g, w, **GRAD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# remat policies
+# ---------------------------------------------------------------------------
+
+POLICIES = ["nothing", "dots_nb", "dots"]
+
+
+def test_unknown_remat_policy_raises_as_the_reference_does(ref_params, batch):
+    jc, tc = _configs(remat=True, remat_policy="bogus")
+    with pytest.raises(KeyError, match="bogus"):
+        j_make_grad_step(jc)(jax.tree_util.tree_map(jnp.asarray, ref_params),
+                             {k: jnp.asarray(v) for k, v in batch.items()})
+    with pytest.raises(KeyError, match="bogus"):
+        make_grad_step(tc)(params_from_jax(ref_params, "cpu"), _torch_batch(batch))
+    # read only where layers are rematerialized, as in the reference
+    make_grad_step(tc.scaled(remat=False))(params_from_jax(ref_params, "cpu"), _torch_batch(batch))
+
+
+@pytest.mark.parametrize("arch", [ARCH, "qwen3-moe-235b-a22b"])
+def test_remat_policies_match_reference_and_each_other(batch, arch):
+    j_base = j_get_smoke_config(arch).scaled(dtype=jnp.float32, remat=True)
+    t_base = get_smoke_config(arch).scaled(dtype=torch.float32, remat=True)
+    tree = jax.tree_util.tree_map(np.asarray, j_init_params(jax.random.PRNGKey(0), j_model_spec(j_base)))
+    j_batch = {k: jnp.asarray(v) for k, v in batch.items()}
+    first = None
+    for policy in POLICIES:
+        j_grads, j_m = jax.jit(j_make_grad_step(j_base.scaled(remat_policy=policy)))(
+            jax.tree_util.tree_map(jnp.asarray, tree), j_batch)
+        grads, m = make_grad_step(t_base.scaled(remat_policy=policy))(
+            params_from_jax(tree, "cpu"), _torch_batch(batch))
+        for k in ("loss", "ce", "aux"):
+            np.testing.assert_allclose(_np(m[k]), np.asarray(j_m[k]), rtol=1e-5, atol=1e-5)
+        for g, w in zip(_leaves(grads), jax.tree_util.tree_leaves(j_grads)):
+            np.testing.assert_allclose(g, np.asarray(w), **GRAD_TOL, err_msg=policy)
+        if first is None:
+            first = (m, tree_leaves(grads))
+            continue
+        assert all(torch.equal(m[k], first[0][k]) for k in m), policy
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(grads), first[1])), policy
+
+
+def test_remat_policies_choose_what_is_computed_again():
+    # the products the backward runs: the layers' recomputed ones go where a
+    # policy saves them ("dots_nb": the projections' mm; "dots": the
+    # experts' bmm too), so the bit-equality above is not a policy ignored
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountProducts(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {"mm": 0, "bmm": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in self.n:
+                self.n[name] += 1
+            return func(*args, **(kwargs or {}))
+
+    counted = {}
+    for policy in POLICIES:
+        cfg = get_smoke_config("qwen3-moe-235b-a22b").scaled(dtype=torch.float32, remat=True,
+                                                              remat_policy=policy)
+        leaves = [p.requires_grad_() for p in tree_leaves(
+            init_params(torch.Generator().manual_seed(0), model_spec(cfg), device="cpu"))]
+        toks = torch.randint(0, cfg.vocab, (2, SEQ), generator=torch.Generator().manual_seed(1))
+        loss, _ = train_loss(tree_unflatten(model_spec(cfg), leaves), cfg,
+                             {"tokens": toks, "labels": toks})
+        with CountProducts() as c:
+            torch.autograd.grad(loss, leaves)
+        counted[policy] = c.n
+    assert counted["dots_nb"]["mm"] < counted["nothing"]["mm"]
+    assert counted["dots_nb"]["bmm"] == counted["nothing"]["bmm"]
+    assert counted["dots"]["mm"] == counted["dots_nb"]["mm"]
+    # 2 layers x the experts' gate and up products
+    assert counted["dots"]["bmm"] <= counted["dots_nb"]["bmm"] - 2 * 2
+
+
+def test_remat_policies_agree_on_the_hybrid_stack():
+    # zamba2-smoke: the groups' checkpoints and the tail's take the policy too
+    cfg = get_smoke_config("zamba2-1.2b").scaled(dtype=torch.float32, remat=True)
+    params = init_params(torch.Generator().manual_seed(0), model_spec(cfg), device="cpu")
+    data = make_batch(DataConfig(vocab=cfg.vocab, seq_len=SEQ, batch_size=2, seed=1), 0, 0)
+    runs = [make_grad_step(cfg.scaled(remat_policy=p))(params, _torch_batch(data)) for p in POLICIES]
+    for grads, m in runs[1:]:
+        assert torch.equal(m["loss"], runs[0][1]["loss"])
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(runs[0][0])))
