@@ -41,7 +41,13 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    types, forward and backward, SDPA the library time. Each flash row names
    the kernels the profiler saw (mma for bf16, scalar for f32, wide past
    D = 256), and every backward is run twice more on the same inputs and
-   must give the same bits. quorum_compare
+   must give the same bits. The frontends' shapes have rows of their own:
+   hubert-xlarge's encoder over 4 x 1500 frames (rmsnorm at (6000, 1280)
+   and swiglu at (6000, 5120), forward and backward; flash without the
+   causal mask at (4, 1500, 16/16, 80), D = 80 padded to 128 and a ragged
+   last key tile, forward and backward) and pixtral-12b's 700-position
+   prefill (rmsnorm (700, 5120), swiglu (700, 14336), flash (1, 700,
+   32/8, 128) causal). quorum_compare
    also runs through the grid trainer's comparator on NaN and inf leaves.
    The int8 quantize and dequantize kernels are held bit for bit (codes,
    scales, and dequantized values at f32 and bf16) at the embedding
@@ -152,8 +158,27 @@ Phases, in order; the first failure ends the run with a non-zero exit:
     qwen3-moe smoke config
     under "nothing", "dots_nb" and "dots": the same bits under all three,
     and each one's peak memory above the parameters and busy time.
-Every main path (phases 3, 5, 7, 9, 11, 13, 15, 16, 17-21) must launch no
-wide-D flash kernel.
+24. hubert-xlarge (audio, encoder-only) at full width, all 48 layers:
+    ``make_encoder_step`` over ``frame_embeddings`` of four 30 s clips
+    (4 x 1500 frames, d = 1280), counters exact (flash 48, all non-causal
+    at D = 80; rmsnorm 97; swiglu 48; nothing else) and profiled; its f32
+    logits on the card against the CPU at 2 layers over 150 frames (1e-3,
+    the same argmax at every frame); a ``GridTrainer`` run with phase 5's
+    settings on 2 shards of 2 x 1500 frames (remat on; the forward and
+    backward kernels and quorum_compare launched, 0 wrong accepted), one
+    grad job profiled; the f32 grad step of the smoke config from
+    embeddings, card against CPU, as phase 6.
+25. pixtral-12b (vlm) at full width, all 40 layers, the server taking the
+    f32 tree leaf by leaf: ``BatchServer`` on phase 3's traffic from token
+    prompts (rmsnorm and swiglu counted exactly); then, on the server's
+    bf16 parameters, a ``make_prefill_step`` over ``patch_embeddings`` of
+    shape (1, 700, 5120) and 32 greedy ``make_decode_step`` steps from its
+    token (flash 40, the prefill's; rmsnorm and swiglu exact), the prefill
+    and a decode step profiled (busy time, idle share) and the peak memory;
+    then its f32 prefill logits from 64 patch embeddings on the card against
+    the CPU at 2 layers (1e-3, the same argmax).
+Every main path (phases 3, 5, 7, 9, 11, 13, 15, 16, 17-21, 24, 25) must
+launch no wide-D flash kernel. Phases 24 and 25 print their walls.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
 numbers of this run (``launches``: the counts of the grid training run
@@ -171,6 +196,9 @@ expert buffer) phase 21's and 19's launches; and for ssd_scan
 its standalone time and its f32 and zamba2-shape times; the wide-D flash
 rows' are phase 5's, 0; ``kernel`` on the flash rows); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+The rows ``*_hubert`` take their launches from phase 24's grid run (and,
+forward, ``launches_encoder`` from its encoder step), ``*_pixtral`` from
+phase 25's serving run (and ``launches_vlm_path``).
 Without a CUDA card, or without the repository's ``src/`` beside it, the
 script exits non-zero and prints no result.
 """
@@ -204,6 +232,9 @@ TRAIN_SHARDS = 2
 # the training-loop phase: 3 steps, a checkpoint at step 2
 LOOP_STEPS = 3
 LOOP_PERIOD = 2
+# hubert-xlarge's input: 30 s clips of 20 ms frames; the encoder takes four
+HUBERT_FRAMES = 1500
+HUBERT_CLIPS = 4
 
 
 def log(msg: str) -> None:
@@ -488,15 +519,16 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan.ref import ssd_ref, ssd_scan_bwd_ref, ssd_scan_ref
     from repro_torch.kernels.swiglu import ops as swiglu_ops
     from repro_torch.kernels.swiglu.ref import swiglu_bwd_ref, swiglu_ref
-    from repro_torch.models import hybrid_layout, init_cache, init_params, model_spec, ssm_config
+    from repro_torch.models import (frontends, hybrid_layout, init_cache, init_params, model_spec,
+                                    ssm_config)
     from repro_torch.checkpoint.checkpointer import _checksum as checkpoint_sha256
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.models.moe import dispatch_shape
     from repro_torch.models.transformer import moe_config
     from repro_torch.optim import AdamWConfig, compress_tree, compressed_bytes, decompress_tree
     from repro_torch.runtime import (BatchServer, GridTrainer, Request, ServeMetrics,
-                                     grad_comparator, make_decode_step, make_grad_step,
-                                     make_prefill_step, train)
+                                     grad_comparator, make_decode_step, make_encoder_step,
+                                     make_grad_step, make_prefill_step, train)
 
     dev = torch.device("cuda")
     ops = {"rmsnorm": rms_ops, "swiglu": swiglu_ops, "flash_attention": flash_ops}
@@ -718,6 +750,12 @@ def main() -> int:
     check_rms(s_max, 1000, bf, 2e-2)
     check_rms(s_max, d, bf, 2e-2, misaligned=True)
     check_rms(64, d, f32, 1e-5, misaligned=True)
+    # the frontends' rows: hubert-xlarge's encoder over four 30 s clips (4 x
+    # 1500 frames at d = 1280; phase 24) and pixtral-12b's 700-position
+    # prefill (d = 5120; phase 25)
+    n_frames = HUBERT_CLIPS * HUBERT_FRAMES
+    results["rmsnorm_hubert"] = check_rms(n_frames, 1280, bf, 2e-2)
+    results["rmsnorm_pixtral"] = check_rms(s_max, 5120, bf, 2e-2)
     results["swiglu"] = check_swiglu(n_tok, ff, bf, 2e-2)
     check_swiglu(s_max, ff, bf, 2e-2)
     check_swiglu(SLOTS, ff, bf, 2e-2)  # decode
@@ -734,6 +772,8 @@ def main() -> int:
     for width in (8192, 33792, 6400):
         check_swiglu(s_max, width, bf, 2e-2)
     check_swiglu(SLOTS, 8192, bf, 2e-2)
+    results["swiglu_hubert"] = check_swiglu(n_frames, 5120, bf, 2e-2)
+    results["swiglu_pixtral"] = check_swiglu(s_max, 14336, bf, 2e-2)
     results["flash_attention"] = check_flash(TRAIN_SEQ, H, KV, hd, bf, 2e-2, b=TRAIN_BATCH,
                                              with_lse=True)
     check_flash(300, H, KV, hd, bf, 2e-2)
@@ -757,6 +797,12 @@ def main() -> int:
     # to 128 (phase 21; its own row), and its smoke size, D = 24 padded to 64
     results["flash_attention_mla"] = check_flash(s_max, 40, 40, 96, bf, 2e-2)
     check_flash(130, 4, 4, 24, bf, 2e-2)
+    # hubert-xlarge's encoder: no causal mask, D = 80 padded to 128, 1500
+    # frames (a ragged last key tile, whose padded keys must score -inf);
+    # pixtral-12b's prefill, 32 query heads on 8 kv heads: rows of their own
+    results["flash_attention_hubert"] = check_flash(HUBERT_FRAMES, 16, 16, 80, bf, 2e-2,
+                                                    b=HUBERT_CLIPS, causal=False)
+    results["flash_attention_pixtral"] = check_flash(s_max, 32, 8, 128, bf, 2e-2)
     # the scalar f32 kernel at the training shape: its own row
     results["flash_attention_f32"] = check_flash(TRAIN_SEQ, H, KV, hd, f32, 2e-5, b=TRAIN_BATCH,
                                                  with_lse=True)
@@ -883,9 +929,11 @@ def main() -> int:
     check_rms_bwd(4, 60000, f32, 1e-4)
     check_rms_bwd(s_max, 1000, bf, 2e-2)
     check_rms_bwd(n_tok, d, bf, 2e-2, misaligned=True)
+    results["rmsnorm_bwd_hubert"] = check_rms_bwd(n_frames, 1280, bf, 2e-2)
     results["swiglu_bwd"] = check_swiglu_bwd(n_tok, ff, bf, 2e-2)
     check_swiglu_bwd(n_tok, ff, f32, 1e-5)
     check_swiglu_bwd(128, 1536, bf, 2e-2, lead=(128,))  # qwen3-moe's expert buffer
+    results["swiglu_bwd_hubert"] = check_swiglu_bwd(n_frames, 5120, bf, 2e-2)
     results["flash_attention_bwd"] = check_flash_bwd(TRAIN_BATCH, TRAIN_SEQ, H, KV, hd, bf, 2e-2)
     # f32 at 1e-4: dQ, dK and dV sum up to 2048 keys or queries per element
     results["flash_attention_bwd_f32"] = check_flash_bwd(TRAIN_BATCH, TRAIN_SEQ, H, KV, hd, f32, 1e-4)
@@ -901,6 +949,10 @@ def main() -> int:
     check_flash_bwd(1, 130, 4, 2, 40, bf, 2e-2, layout="wide")
     check_flash_bwd(1, s_max, 40, 40, 96, bf, 2e-2)  # MLA, minicpm3-4b and its smoke size
     check_flash_bwd(1, 130, 4, 4, 24, bf, 2e-2)
+    # hubert-xlarge: no causal mask, D = 80, 1500 frames; padded keys add
+    # nothing to dQ, dK or dV, and the repeat gives the same bits
+    results["flash_attention_bwd_hubert"] = check_flash_bwd(HUBERT_CLIPS, HUBERT_FRAMES, 16, 16, 80, bf,
+                                                            2e-2, causal=False)
     # past D = 128: the kD = 256 kernels (dK/dV in two column halves)
     check_flash_bwd(1, TRAIN_SEQ, 8, 4, 256, bf, 2e-2)
     check_flash_bwd(1, 300, 8, 4, 256, bf, 2e-2)
@@ -1168,7 +1220,7 @@ def main() -> int:
         check_ssd_bwd(1, TRAIN_SEQ, 16, 128, 8, 256, dtype, tol, init=True)
 
     # ---- 3. serve at full width -------------------------------------------
-    def serve_full_width(tag, cfg, rng, implied, exact=(), keep_f32=True):
+    def serve_full_width(tag, cfg, rng, implied, exact=(), keep_f32=True, then=None):
         """Serve N_REQUESTS requests of 64-700 prompt tokens (the first 700),
         MAX_NEW new tokens each, EDF deadlines, through ``BatchServer`` at
         full width from random weights (bf16 compute). Every counter is
@@ -1176,26 +1228,30 @@ def main() -> int:
         must show at least ``implied(forwards)[name]`` launches (exactly
         that many for the names in ``exact``; none where that is 0), and no
         backward, quorum, int8 or wide-D flash kernel may run. Then one
-        700-token prefill and one decode step under torch.profiler. Returns
-        the forward kernels' launches and the f32 parameters (None without
-        ``keep_f32``: the f32 tree is dropped once the server holds its
-        compute copy)."""
+        700-token prefill and one decode step under torch.profiler; then
+        ``then(server)``, where given. Returns the forward kernels' launches
+        and the f32 parameters (None without ``keep_f32``: the server takes
+        the f32 tree leaf by leaf, so it and the compute copy are never both
+        whole)."""
         # earlier phases leave device tensors in reference cycles (the grid
         # trainer's store): free them, so that the peak memory is this run's
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         params = init_params(gen, model_spec(cfg), device=dev)  # f32
-        server = BatchServer(cfg, params, batch_slots=SLOTS, max_seq=MAX_SEQ)
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        server = BatchServer(cfg, params, batch_slots=SLOTS, max_seq=MAX_SEQ,
+                             take_params=not keep_f32)
         torch.cuda.synchronize()
         log(f"[{tag}] params {cfg.param_count()} ({time.perf_counter() - t:.2f} s to init and cast); "
-            f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+            f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB; peak GiB while "
+            f"drawing the f32 tree {init_peak:.2f}, while the server casts it "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
         if not keep_f32:
-            params = None
-            gc.collect()
-            torch.cuda.empty_cache()
-            log(f"[{tag}] f32 tree dropped: memory allocated "
-                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+            params = None  # emptied by the server
         # warm-up (cuBLAS handles, allocator): one short request, not counted
         server.submit(Request(id=-1, prompt=rng.integers(0, cfg.vocab, size=16).astype(np.int32),
                               max_new_tokens=2))
@@ -1253,30 +1309,36 @@ def main() -> int:
             # an SSM prefill runs the three ssd_scan kernels; none the old one
             check_ssd_profile(dev_us, label.startswith("prefill") and implied(1)["ssd_scan"] > 0,
                               f"[{tag}] {label}")
-        del server, one, batch_cache
+        del one, batch_cache
+        if then is not None:
+            then(server)
+        del server
         torch.cuda.empty_cache()
         return launches, params
 
     def logits_card_vs_cpu(tag, cfg32, params, prompt, tol, kernels):
-        """The card's f32 prefill logits of ``prompt`` (through the kernels,
-        each of ``kernels`` launched) against the port's CPU forward (plain
+        """The card's f32 prefill logits of ``prompt`` (tokens (S,), or
+        embeddings (S, d) of a vlm; through the kernels, each of
+        ``kernels`` launched) against the port's CPU forward (plain
         versions) from the same parameters: max abs error within ``tol`` and
         the same argmax."""
         step32 = make_prefill_step(cfg32)
         before = counts()
         n = len(prompt)
-        gpu_logits, _ = step32(params, {"tokens": prompt[None].to(dev)}, init_cache(cfg32, 1, n))
+        key = "embeds" if prompt.is_floating_point() else "tokens"
+        gpu_logits, _ = step32(params, {key: prompt[None].to(dev)}, init_cache(cfg32, 1, n))
         torch.cuda.synchronize()
         after = counts()
         skipped = [k for k in kernels if after[k] <= before[k]]
         if skipped:
             raise AssertionError(f"the f32 prefill skipped {skipped}")
         cpu_params = tree_map(lambda t: t.cpu(), params)
-        cpu_logits, _ = step32(cpu_params, {"tokens": prompt[None]}, init_cache(cfg32, 1, n, "cpu"))
+        cpu_logits, _ = step32(cpu_params, {key: prompt[None]}, init_cache(cfg32, 1, n, "cpu"))
         g, c = gpu_logits[0, -1, : cfg32.vocab].cpu(), cpu_logits[0, -1, : cfg32.vocab]
         assert torch.isfinite(g).all() and g.shape == (cfg32.vocab,)
         err = (g - c).abs().max().item()
-        log(f"[{tag}] {cfg32.name} ({cfg32.n_layers} layers) f32 prefill logits, card vs CPU: max abs "
+        log(f"[{tag}] {cfg32.name} ({cfg32.n_layers} layers) f32 prefill logits from {key}, card vs "
+            f"CPU: max abs "
             f"err {err:.3e} (tol {tol}, |logit| max {c.abs().max().item():.3f}); argmax card "
             f"{int(g.argmax())} cpu {int(c.argmax())}")
         if err > tol or int(g.argmax()) != int(c.argmax()):
@@ -1335,17 +1397,19 @@ def main() -> int:
             log(f"[{tag}] grad job peak_mem_gib {peak:.2f}")
         return dev_us, calls, forwards
 
-    def grid_train(tag, cfg, required, idle_kernels):
+    def grid_train(tag, cfg, required, idle_kernels, seq=TRAIN_SEQ):
         """Train ``cfg`` at full width through ``GridTrainer``: TRAIN_STEPS
-        steps of TRAIN_SHARDS shards x TRAIN_BATCH x TRAIN_SEQ tokens, 8
-        hosts, 5% erroneous, 15% malicious. Every counter is zeroed just
+        steps of TRAIN_SHARDS shards x TRAIN_BATCH x ``seq`` positions
+        (tokens, or a frontend's embeddings), 8 hosts, 5% erroneous, 15%
+        malicious. Every counter is zeroed just
         before and read just after: each of ``required`` must be non-zero,
         each of ``idle_kernels`` zero; no wrong gradient may be accepted.
         Then one grad job under torch.profiler. Returns the run's launches
         and ``job_profile``'s result for the profiled job."""
         reset_ids()
-        data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
-                              n_shards=TRAIN_SHARDS, seed=SEED)
+        data_cfg = DataConfig(vocab=cfg.vocab, seq_len=seq, batch_size=TRAIN_BATCH,
+                              n_shards=TRAIN_SHARDS, seed=SEED, input_mode=cfg.input_mode,
+                              d_model=cfg.d_model)
         t = time.perf_counter()
         trainer = GridTrainer(cfg, data_cfg,
                               AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=TRAIN_STEPS),
@@ -1353,7 +1417,7 @@ def main() -> int:
                               malicious_fraction=0.15, availability=0.9)
         torch.cuda.synchronize()
         log(f"[{tag}] GridTrainer {cfg.name} (remat={cfg.remat}, compute {cfg.dtype}), {TRAIN_STEPS} steps "
-            f"x {TRAIN_SHARDS} shards x ({TRAIN_BATCH} x {TRAIN_SEQ}) tokens, 8 hosts; set up in "
+            f"x {TRAIN_SHARDS} shards x ({TRAIN_BATCH} x {seq}) {cfg.input_mode}, 8 hosts; set up in "
             f"{time.perf_counter() - t:.2f} s, memory allocated "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
         torch.cuda.reset_peak_memory_stats()
@@ -1387,8 +1451,8 @@ def main() -> int:
                                  f"should be {stray}")
 
         # where the device time of one grad job goes
-        batch_np = make_batch(data_cfg, 0, 0)
-        batch = {k: torch.from_numpy(v.astype(np.int64)).to(dev) for k, v in batch_np.items()}
+        batch = {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind == "i" else v).to(dev)
+                 for k, v in make_batch(data_cfg, 0, 0).items()}
         grad_step = make_grad_step(cfg)
         job = job_profile(tag, lambda: grad_step(trainer.params, batch))
         del trainer, grad_step, batch
@@ -1402,13 +1466,18 @@ def main() -> int:
 
     # ---- 6. card (kernels) against CPU (plain versions): one f32 grad step --
     def grad_card_vs_cpu(tag, cfg32, required_bwd, seed, leaf_rtol=1e-3, leaf_atol=1e-4):
-        """One f32 grad step of ``cfg32`` on 1 x 256 tokens on the card
+        """One f32 grad step of ``cfg32`` on 1 x 256 tokens (or frontend
+        embeddings) on the card
         (each of ``required_bwd`` launched) against the CPU's from the same
         parameters: the loss to 1e-4 and per leaf |card - cpu| <= 1e-3 |cpu|
         + leaf_atol max|cpu| with leaf_rtol = 1e-3. Returns the step's launches."""
         p32 = init_params(torch.Generator(device=dev).manual_seed(seed), model_spec(cfg32), device=dev)
         toks = rng.integers(0, cfg32.vocab, size=(1, 257))
         b32 = {"tokens": torch.as_tensor(toks[:, :-1]), "labels": torch.as_tensor(toks[:, 1:])}
+        if cfg32.input_mode == "embeds":
+            b32["embeds"] = torch.as_tensor(rng.standard_normal((1, 256, cfg32.d_model)),
+                                            dtype=torch.float32)
+            del b32["tokens"]
         step32 = make_grad_step(cfg32)
         before = counts()
         g_card, m_card = step32(p32, {k: v.to(dev) for k, v in b32.items()})
@@ -1821,7 +1890,141 @@ def main() -> int:
                       qmoe.scaled(n_layers=1)):
         remat_policies("23", remat_cfg)
 
+    # ---- 24. hubert-xlarge: the encoder, a grid run, f32 checks ------------
+    t_phase = time.perf_counter()
+    hcfg = get_config("hubert-xlarge")
+    Lh = hcfg.n_layers
+    log(f"[24] {hcfg.name}: all {Lh} layers, d={hcfg.d_model}, {hcfg.n_heads}/{hcfg.n_kv_heads} heads "
+        f"of {hcfg.resolved_head_dim}, d_ff {hcfg.d_ff}, vocab {hcfg.vocab} (padded "
+        f"{hcfg.padded_vocab}), encoder_only {hcfg.encoder_only} (causal {hcfg.causal}), input_mode "
+        f"{hcfg.input_mode}, compute {hcfg.dtype}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(gen, model_spec(hcfg), device=dev)  # f32
+    clips = {"embeds": frontends.frame_embeddings(gen, HUBERT_CLIPS, HUBERT_FRAMES, hcfg.d_model,
+                                                  device=dev)}
+    encode = make_encoder_step(hcfg)
+    encode(params, clips)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t = time.perf_counter()
+    logits = encode(params, clips)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t) * 1e3
+    enc_launches = counts()
+    want = {**{k: 0 for k in enc_launches}, "rmsnorm": 2 * Lh + 1, "swiglu": Lh, "flash_attention": Lh}
+    log(f"[24] encoder over {HUBERT_CLIPS} x {HUBERT_FRAMES} frames: {enc_ms:.3f} ms wall, logits "
+        f"{tuple(logits.shape)}, peak_mem_gib {torch.cuda.max_memory_allocated() / 2**30:.2f}; "
+        f"launches {json.dumps(enc_launches)}")
+    if enc_launches != want:
+        raise AssertionError(f"the encoder launched {enc_launches}; its path implies {want}")
+    if (tuple(logits.shape) != (HUBERT_CLIPS, HUBERT_FRAMES, hcfg.padded_vocab)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"encoder logits of shape {tuple(logits.shape)}, or not finite")
+    dev_us, _ = profile_breakdown(lambda: encode(params, clips), "[24] encoder", top=8)
+    check_flash_profile(dev_us, MMA_FLASH[:1], "[24] encoder")
+    del params, clips, logits
+    # f32 encoder logits at every one of 150 frames, card (kernels) against
+    # CPU (plain versions), at 2 layers
+    h32 = hcfg.scaled(n_layers=2, dtype=torch.float32)
+    params = init_params(gen, model_spec(h32), device=dev)
+    frames = frontends.frame_embeddings(gen, 1, 150, h32.d_model, torch.float32, dev)
+    encode32 = make_encoder_step(h32)
+    before = flash_ops.launches
+    card = encode32(params, {"embeds": frames})[..., : h32.vocab].cpu()
+    if flash_ops.launches - before != h32.n_layers:
+        raise AssertionError("the f32 encoder skipped the flash kernel")
+    cpu = encode32(tree_map(lambda t: t.cpu(), params), {"embeds": frames.cpu()})[..., : h32.vocab]
+    err = (card - cpu).abs().max().item()
+    same = bool((card.argmax(-1) == cpu.argmax(-1)).all())
+    log(f"[24] {h32.name} ({h32.n_layers} layers) f32 encoder logits of 150 frames, card vs CPU: max abs "
+        f"err {err:.3e} (tol 1e-3, |logit| max {cpu.abs().max().item():.3f}); argmax equal at every "
+        f"frame: {same}")
+    if err > 1e-3 or not same or not torch.isfinite(card).all():
+        raise AssertionError(f"{h32.name}: f32 encoder logits card vs CPU differ by {err}")
+    del params, frames
+    # the grid run: 2 shards of 2 clips of 1500 frames a step
+    hubert_train_launches, (dev_us, _, _) = grid_train(
+        "24", hcfg, (*ops, *bwd_ops, "quorum_compare"), ("ssd_scan", "ssd_scan_bwd", *WIDE),
+        seq=HUBERT_FRAMES)
+    check_flash_profile(dev_us, MMA_FLASH, "[24] grad job")
+    grad_card_vs_cpu("24", get_smoke_config("hubert-xlarge").scaled(dtype=torch.float32),
+                     ("rmsnorm_bwd", "swiglu_bwd", "flash_attention_bwd"), SEED + 24)
+    log(f"[24] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 25. pixtral-12b: patch embeddings prefilled, text decoded, served --
+    t_phase = time.perf_counter()
+    pcfg = get_config("pixtral-12b")
+    Lp = pcfg.n_layers
+    log(f"[25] {pcfg.name}: all {Lp} layers, d={pcfg.d_model}, {pcfg.n_heads}/{pcfg.n_kv_heads} heads "
+        f"of {pcfg.resolved_head_dim}, d_ff {pcfg.d_ff}, vocab {pcfg.vocab} (padded {pcfg.padded_vocab}), "
+        f"rope_theta {pcfg.rope_theta}, input_mode {pcfg.input_mode}, compute {pcfg.dtype}")
+    vlm = {}
+
+    def vlm_path(server):
+        """Prefill (1, 700, d) patch embeddings through ``make_prefill_step``
+        from the server's bf16 parameters, then MAX_NEW greedy decode steps
+        from token ids: launches exact, wall times, peak memory; then the
+        prefill and one decode step profiled (busy time, idle share)."""
+        emb = frontends.patch_embeddings(gen, 1, s_max, pcfg.d_model, device=dev)
+        prefill, decode = make_prefill_step(pcfg), make_decode_step(pcfg)
+        cache = init_cache(pcfg, 1, MAX_SEQ)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t = time.perf_counter()
+        logits, cache = prefill(server.params, {"embeds": emb}, cache)
+        tok = logits[:, -1, : pcfg.vocab].argmax(-1, keepdim=True)
+        out = [int(tok)]
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        for i in range(MAX_NEW):
+            logits, cache = decode(server.params, tok, cache, s_max + i)
+            tok = logits[:, -1, : pcfg.vocab].argmax(-1, keepdim=True)
+            out.append(int(tok))
+        decode_ms = (time.perf_counter() - t) * 1e3 / MAX_NEW
+        vlm["launches"] = counts()
+        forwards = 1 + MAX_NEW
+        want = {**{k: 0 for k in vlm["launches"]}, "rmsnorm": (2 * Lp + 1) * forwards,
+                "swiglu": Lp * forwards, "flash_attention": Lp}  # decode bypasses flash
+        log(f"[25] vlm path: prefill of (1, {s_max}, {pcfg.d_model}) patch embeddings {prefill_ms:.3f} ms, "
+            f"{MAX_NEW} greedy decode steps {decode_ms:.3f} ms each, peak_mem_gib "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f}; tokens {out}; launches "
+            f"{json.dumps(vlm['launches'])}")
+        if vlm["launches"] != want:
+            raise AssertionError(f"the vlm path launched {vlm['launches']}; it implies {want}")
+        if not all(0 <= x < pcfg.vocab for x in out):
+            raise AssertionError(f"decoded tokens out of the vocabulary: {out}")
+        steps = (("prefill 700 embeds", lambda: prefill(server.params, {"embeds": emb}, cache)),
+                 ("decode x1", lambda: decode(server.params, tok, cache, s_max + MAX_NEW)))
+        for label, step in steps:
+            dev_us, _ = profile_breakdown(step, f"[25] {label}", top=8)
+            check_flash_profile(dev_us, MMA_FLASH[:1] if label.startswith("prefill") else (),
+                                f"[25] {label}")
+
+    # the server takes the f32 tree leaf by leaf (46.3 GB f32, 23.2 GB bf16)
+    pixtral_launches, _ = serve_full_width(
+        "25", pcfg, np.random.default_rng(SEED + 25),
+        lambda f: {"rmsnorm": (2 * Lp + 1) * f, "swiglu": Lp * f, "flash_attention": Lp * N_REQUESTS,
+                   "ssd_scan": 0},
+        exact=("swiglu", "rmsnorm"), keep_f32=False, then=vlm_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # f32 prefill logits from patch embeddings, card against CPU, 2 layers
+    p32 = pcfg.scaled(n_layers=2, dtype=torch.float32)
+    params = init_params(gen, model_spec(p32), device=dev)
+    patches = torch.randn((64, p32.d_model), generator=torch.Generator().manual_seed(SEED + 25))
+    logits_card_vs_cpu("25", p32, params, patches, 1e-3, list(ops))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[25] phase wall {time.perf_counter() - t_phase:.1f} s")
+
     # ---- result lines ------------------------------------------------------
+    # each row's TPU kernel and CUDA source, from the kernel its name starts
+    # with; the backward rows name their forward's TPU kernel (the reference
+    # differentiates its jnp functions with XLA: no TPU backward kernels)
     replaces = {
         "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:17",
         "swiglu": "src/repro/kernels/swiglu/kernel.py:12",
@@ -1830,27 +2033,12 @@ def main() -> int:
         "int8_quantize": "src/repro/kernels/int8_quant/kernel.py:19",
         "int8_dequantize": "src/repro/kernels/int8_quant/kernel.py:28",
         "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:26",
-        "ssd_scan_bwd": "src/repro/kernels/ssd_scan/kernel.py:26",
-        # no TPU backward kernels: the reference differentiates its jnp
-        # functions with XLA; each row names the forward TPU kernel
-        "rmsnorm_bwd": "src/repro/kernels/rmsnorm/kernel.py:17",
-        "swiglu_bwd": "src/repro/kernels/swiglu/kernel.py:12",
-        "flash_attention_bwd": "src/repro/kernels/flash_attention/kernel.py:30",
-        # the f32 scalar flash kernels, run by the f32 checks (phases 4, 6, 10, 12)
-        "flash_attention_f32": "src/repro/kernels/flash_attention/kernel.py:30",
-        "flash_attention_bwd_f32": "src/repro/kernels/flash_attention/kernel.py:30",
-        # flash at MLA's D = 96 (minicpm3-4b, phase 21) and swiglu over
-        # qwen3-moe's expert buffer (phase 19): rows of their own
-        "flash_attention_mla": "src/repro/kernels/flash_attention/kernel.py:30",
-        "swiglu_moe": "src/repro/kernels/swiglu/kernel.py:12",
-        # the wide-D flash kernels (D > 256), both types, run by phase 2 alone
-        **{n: "src/repro/kernels/flash_attention/kernel.py:30"
-           for n in ("flash_attention_wide", "flash_attention_wide_f32", "flash_attention_bwd_wide",
-                     "flash_attention_bwd_wide_f32")},
     }
-    sources = {"int8_quantize": "int8_quant", "int8_dequantize": "int8_quant",
-               "flash_attention_mla": "flash_attention", "swiglu_moe": "swiglu",
-               **{n: "flash_attention" for n in replaces if "wide" in n}}
+    sources = {"int8_quantize": "int8_quant", "int8_dequantize": "int8_quant"}
+
+    def kernel_of(name):
+        return next(k for k in replaces if name.startswith(k))
+
     main_launches = {**train_launches, "int8_quantize": comp_launches["int8_quantize"],
                      "int8_dequantize": comp_launches["int8_dequantize"],
                      "ssd_scan": mamba_launches["ssd_scan"],
@@ -1861,14 +2049,20 @@ def main() -> int:
                      "flash_attention_mla": zoo["minicpm3-4b"]["flash_attention"],
                      "swiglu_moe": zoo["qwen3-moe-235b-a22b"]["swiglu"],
                      # the wide-D rows: the grid training run's (0; every main path checks 0)
-                     **{n: train_launches[n.replace("_f32", "")] for n in replaces if "wide" in n}}
+                     **{n: train_launches[n.replace("_f32", "")] for n in results if "wide" in n},
+                     # the frontends' rows: hubert-xlarge's grid run (phase 24) and
+                     # pixtral-12b's serving run (phase 25)
+                     **{n: hubert_train_launches[n.replace("_hubert", "")] for n in results
+                        if n.endswith("_hubert")},
+                     **{n: pixtral_launches[n.replace("_pixtral", "")] for n in results
+                        if n.endswith("_pixtral")}}
     kernels = []
     for name, rec in results.items():
-        base = name.replace("_f32", "")
+        base, kernel = name.replace("_f32", ""), kernel_of(name)
         row = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{sources.get(name, base.replace('_bwd', ''))}.cu",
-            "replaces": replaces[name], "launches": main_launches[name],
+            "source": f"src/repro_torch/csrc/{sources.get(kernel, kernel)}.cu",
+            "replaces": replaces[kernel], "launches": main_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "call_ms": rec["call_ms"], "shape": rec["shape"],
@@ -1891,7 +2085,15 @@ def main() -> int:
             row["launches_in"] = "phase 6, the f32 grad step"
         if "wide" in name:
             row["launches_in"] = ("phase 5; every main path (phases 3, 5, 7, 9, 11, 13, 15, 16, "
-                                  "17-21) launched none")
+                                  "17-21, 24, 25) launched none")
+        if name.endswith("_hubert"):
+            row["launches_in"] = ("phase 24, training hubert-xlarge (every flash launch non-causal at "
+                                  "D = 80; 2 x 1500 frames a grad job)")
+            if "_bwd" not in name:
+                row["launches_encoder"] = enc_launches[name.replace("_hubert", "")]
+        if name.endswith("_pixtral"):
+            row["launches_in"] = "phase 25, serving pixtral-12b from token prompts"
+            row["launches_vlm_path"] = vlm["launches"][name.replace("_pixtral", "")]
         if name == "ssd_scan":
             row["launches_serve"] = mamba_launches[name]
             row["launches_serve_zamba2"] = zamba_launches[name]

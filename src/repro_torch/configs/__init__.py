@@ -1,11 +1,11 @@
 """Architecture registry; counterpart of ``repro.configs``.
 
-The reference registers ten architectures. Eight are ported: the dense
-``qwen3-0.6b``, ``phi4-mini-3.8b`` and ``command-r-plus-104b`` (GQA) and
-``minicpm3-4b`` (MLA), the moe ``qwen3-moe-235b-a22b`` and
-``llama4-scout-17b-a16e``, the ssm ``mamba2-130m`` and the hybrid
-``zamba2-1.2b``. Asking for ``pixtral-12b`` (vlm) or ``hubert-xlarge``
-(audio) raises ``NotImplementedError``.
+The reference's ten architectures, all ported: the dense ``qwen3-0.6b``,
+``phi4-mini-3.8b`` and ``command-r-plus-104b`` (GQA) and ``minicpm3-4b``
+(MLA), the moe ``qwen3-moe-235b-a22b`` and ``llama4-scout-17b-a16e``, the
+ssm ``mamba2-130m``, the hybrid ``zamba2-1.2b``, the vlm ``pixtral-12b``
+(patch embeddings in, text decoded) and the audio ``hubert-xlarge``
+(frame embeddings in, encoder-only). An unknown name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -27,16 +27,7 @@ ARCHS: List[str] = [
     "zamba2-1.2b",
 ]
 
-PORTED: List[str] = [
-    "mamba2-130m",
-    "minicpm3-4b",
-    "qwen3-0.6b",
-    "command-r-plus-104b",
-    "phi4-mini-3.8b",
-    "llama4-scout-17b-a16e",
-    "qwen3-moe-235b-a22b",
-    "zamba2-1.2b",
-]
+PORTED: List[str] = list(ARCHS)
 
 _MODULES: Dict[str, str] = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 
@@ -44,10 +35,6 @@ _MODULES: Dict[str, str] = {a: a.replace("-", "_").replace(".", "_") for a in AR
 def _module(arch: str):
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: {ARCHS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not yet ported to repro_torch; ported: {PORTED}"
-        )
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 

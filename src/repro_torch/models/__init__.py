@@ -1,5 +1,7 @@
 """Model code of the port; counterpart of ``repro.models`` (dense GQA and
-MLA, moe, ssm and hybrid families)."""
+MLA, moe, ssm, hybrid, and the vlm and audio backbones with their frontend
+stubs in ``frontends``)."""
+from . import frontends
 from .config import SHAPES, ModelConfig, ShapeConfig, cell_supported, get_shape
 from .convert import params_from_jax
 from .layers import ParamSpec, count_params, init_params
@@ -24,6 +26,7 @@ __all__ = [
     "cell_supported",
     "count_params",
     "forward",
+    "frontends",
     "get_shape",
     "hybrid_layout",
     "init_cache",

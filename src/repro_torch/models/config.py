@@ -2,8 +2,10 @@
 ``repro.models.config``.
 
 The fields are the reference's, with torch dtypes in place of the jnp ones.
-Every family but vlm and audio is ported (dense with GQA or MLA, moe, ssm,
-hybrid); ``param_count`` raises for those two through ``model_spec``.
+Every family is ported: dense (GQA or MLA), moe, ssm, hybrid, and vlm and
+audio, whose backbone is the dense stack fed with embeddings
+(``input_mode="embeds"``; audio is ``encoder_only``: no causal mask, no
+decode).
 """
 from __future__ import annotations
 

@@ -9,14 +9,19 @@ Families ported:
   ssm   : [rmsnorm -> mamba2 -> +res] x L
   hybrid: groups of mamba layers with ONE weight-tied attention+MLP block
           (no qk-norm) after each group, then the tail layers
+  vlm   : the dense stack fed with patch embeddings (prefill, training) or
+          text tokens (decode)
+  audio : the dense stack fed with frame embeddings, encoder-only (no
+          causal mask, no cache)
 
-each followed by the final rmsnorm and the tied unembedding; the vlm and
-audio families (their frontends) are not ported yet. The reference's
-``lax.scan`` over stacked layer parameters is a Python loop over their
-leading axis (or the two leading axes, groups and layers, of the hybrid
-stack), unbound once (so a gradient through the layers is one stack of the
-per-layer gradients); the aux losses are summed in layer order from zero,
-as the scan's carry sums them. ``jax.checkpoint(..., policy=...)`` becomes
+each followed by the final rmsnorm and the tied unembedding (hubert's
+``tie_embeddings=False`` is read nowhere in the reference either). The
+reference's ``lax.scan`` over stacked layer parameters is a Python loop
+over their leading axis (or the two leading axes, groups and layers, of
+the hybrid stack), unbound once (so a gradient through the layers is one
+stack of the per-layer gradients); the aux losses are summed in layer
+order from zero, as the scan's carry sums them.
+``jax.checkpoint(..., policy=...)`` becomes
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` with the
 policy ``cfg.remat_policy`` names (``_remat_context``), for each layer
 (each group of the hybrid stack) when training with ``cfg.remat``; each CE
@@ -66,12 +71,15 @@ from .moe import MoEConfig, moe_forward, moe_spec
 from .ssm import SSMConfig, mamba2_decode_step, mamba2_forward, mamba2_spec, mamba2_state_shape
 
 
+_DENSE_STACK = ("dense", "moe", "vlm", "audio")  # the families the dense stack serves
+
+
 def _require_ported(cfg: ModelConfig) -> None:
     if not (cfg.family in ("ssm", "hybrid")
-            or (cfg.family in ("dense", "moe") and cfg.attention in ("gqa", "mla"))):
+            or (cfg.family in _DENSE_STACK and cfg.attention in ("gqa", "mla"))):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} / attention {cfg.attention!r} is not yet "
-            "ported to repro_torch (dense and moe with gqa or mla, ssm and hybrid only)"
+            f"{cfg.name}: family {cfg.family!r} / attention {cfg.attention!r} has no stack in "
+            "repro_torch (dense, moe, vlm and audio with gqa or mla; ssm; hybrid)"
         )
 
 
@@ -174,7 +182,7 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     spec: Dict[str, Any] = {}
     if cfg.vocab:
         spec["embed"] = embedding_spec(cfg.padded_vocab, cfg.d_model)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in _DENSE_STACK:
         spec["layers"] = stack_layer_specs(_dense_block_spec(cfg), cfg.n_layers)
     elif cfg.family == "ssm":
         spec["layers"] = stack_layer_specs(_mamba_block_spec(cfg), cfg.n_layers)
@@ -331,11 +339,12 @@ def _hybrid_forward(
 def forward(
     params: Dict[str, Any],
     cfg: ModelConfig,
-    tokens: torch.Tensor,
+    tokens: Optional[torch.Tensor] = None,
+    embeds: Optional[torch.Tensor] = None,
     cache: Optional[Dict[str, Any]] = None,
     cache_index: Optional[int] = None,
-    return_hidden: bool = False,
     train: bool = False,
+    return_hidden: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
     """Returns (logits (B, S, V_padded) or hidden, cache, aux_loss), as the
     reference does; aux is the MoE layers' load-balancing loss summed in
@@ -346,10 +355,16 @@ def forward(
     reference's rule, so a 1-token prompt decodes too). With ``train`` and
     ``cfg.remat`` each layer (each group of a hybrid stack) runs under
     activation checkpointing with ``cfg.remat_policy``, as in the
-    reference. The reference also takes embeddings in place of tokens for
-    other input modes."""
+    reference. ``embeds`` (B, S, d_model), given, take the place of the
+    embedded ``tokens``: they are cast to ``cfg.dtype`` (the vlm and audio
+    frontends' patch and frame embeddings)."""
     _require_ported(cfg)
-    x = embed_tokens(params["embed"], tokens, cfg.dtype)
+    if embeds is not None:
+        x = embeds.to(cfg.dtype)
+    elif tokens is not None:
+        x = embed_tokens(params["embed"], tokens, cfg.dtype)
+    else:
+        raise ValueError("forward needs tokens or embeds")
     b, s = x.shape[:2]
     base = cache_index if cache_index is not None else 0
     positions = (base + torch.arange(s, device=x.device))[None, :].expand(b, s)
@@ -386,17 +401,18 @@ def train_loss(
     batch: Dict[str, torch.Tensor],
     ce_chunk: int = 512,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token CE loss + aux (the MoE layers' load-balancing loss).
+    """Next-token (or frame-classification) CE loss + aux (the MoE layers'
+    load-balancing loss); the batch holds ``tokens`` or ``embeds``.
 
     As in the reference, the loss is computed in sequence chunks with
     rematerialization when ``s > 2 * ce_chunk`` and ``s % ce_chunk == 0``:
     the (B, S, V) logits are never alive at once; per chunk, unembed + CE
     run forward and again in backward. Otherwise one checkpointed chunk
     covers the whole sequence. Chunk sums are added in order from zero."""
-    tokens = batch["tokens"]
     labels = batch["labels"]
     mask = batch.get("mask")
-    hidden, _, aux = forward(params, cfg, tokens, train=True, return_hidden=True)
+    hidden, _, aux = forward(params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+                             train=True, return_hidden=True)
     b, s, _ = hidden.shape
     ce_chunk = cfg.ce_chunk or ce_chunk
     zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -435,7 +451,7 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
     groups). K/V (the MLA latent and RoPE key) are in the compute dtype;
     both mamba state leaves are f32."""
     _require_ported(cfg)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in _DENSE_STACK:
         if cfg.attention == "mla":
             per = mla_cache_shape(batch, max_seq, cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.dtype)
         else:

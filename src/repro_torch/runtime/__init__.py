@@ -1,9 +1,16 @@
 """Runtime of the port; counterpart of ``repro.runtime``: serving, the
-gradient and train steps, the single-process training loop with
-checkpoint/restart, and the volunteer-grid trainer."""
+gradient, train, prefill, encoder and decode steps, the single-process
+training loop with checkpoint/restart, and the volunteer-grid trainer."""
 from .grid_runtime import GridTrainer, GridTrainResult, grad_comparator
 from .serve_loop import AdmissionQueue, BatchServer, Request, ServeMetrics
-from .step_builder import make_decode_step, make_grad_step, make_prefill_step, make_train_step
+from .step_builder import (
+    input_specs,
+    make_decode_step,
+    make_encoder_step,
+    make_grad_step,
+    make_prefill_step,
+    make_train_step,
+)
 from .train_loop import TrainResult, train
 
 __all__ = [
@@ -15,7 +22,9 @@ __all__ = [
     "ServeMetrics",
     "TrainResult",
     "grad_comparator",
+    "input_specs",
     "make_decode_step",
+    "make_encoder_step",
     "make_grad_step",
     "make_prefill_step",
     "make_train_step",

@@ -66,10 +66,13 @@ FLASH_BWD_CASES = FLASH_CASES + [(1, 130, 4, 2, 48, False, "float32"),
 # bf16 cases for the tensor-core kernels on the card: zamba2's shared
 # attention block at its prefill shape, a ragged S with D = 48 (padded to
 # 64), GQA without the causal mask; MLA's q/k width at minicpm3-4b's prefill
-# shape (D = 96, padded to 128) and at its smoke size (D = 24, padded to 64)
+# shape (D = 96, padded to 128) and at its smoke size (D = 24, padded to 64);
+# hubert-xlarge's encoder (non-causal, D = 80 padded to 128, 1500 frames: a
+# ragged last key tile) and pixtral-12b's 700-token prefill (32/8 heads)
 FLASH_BF16_CASES = [(1, 700, 32, 32, 64, True, "bfloat16"), (1, 130, 4, 2, 48, True, "bfloat16"),
                     (1, 256, 8, 2, 128, False, "bfloat16"), (1, 700, 40, 40, 96, True, "bfloat16"),
-                    (1, 130, 4, 4, 24, True, "bfloat16")]
+                    (1, 130, 4, 4, 24, True, "bfloat16"), (1, 1500, 16, 16, 80, False, "bfloat16"),
+                    (1, 700, 32, 8, 128, True, "bfloat16")]
 # (b, s, h, p, g, n, with initial state, dtype): the mamba2 and zamba2
 # prefill shapes, a ragged S, groups, a ragged P tile and N = 256
 SSD_CASES = [
@@ -796,6 +799,34 @@ class TestModelsOnCard:
         assert swiglu_ops.launches_bwd > before[0] and flash_ops.launches_bwd > before[1]
         assert torch.isfinite(m1["loss"]) and all(torch.equal(m1[k], m2[k]) for k in m1)
         assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g1), tree_leaves(g2)))
+
+    @pytest.mark.parametrize("arch", ["hubert-xlarge", "pixtral-12b"])
+    def test_frontend_logits_on_the_card_match_the_cpu(self, cuda, arch):
+        # f32 smoke logits from frame (hubert: the encoder, non-causal over
+        # 150 frames) or patch embeddings (pixtral: a prefill), through the
+        # kernels on the card and the plain versions on the CPU
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models import frontends, init_cache, init_params, model_spec
+        from repro_torch.models.layers import tree_map
+        from repro_torch.runtime import make_encoder_step, make_prefill_step
+
+        cfg = get_smoke_config(arch).scaled(dtype=torch.float32)
+        params = init_params(torch.Generator(device=cuda).manual_seed(0), model_spec(cfg), device=cuda)
+        stub = frontends.frame_embeddings if arch == "hubert-xlarge" else frontends.patch_embeddings
+        x = stub(torch.Generator(device=cuda).manual_seed(1), 2, 150, cfg.d_model, torch.float32, cuda)
+        before = flash_ops.launches
+        if cfg.has_decode:
+            step = make_prefill_step(cfg)
+            card, _ = step(params, {"embeds": x}, init_cache(cfg, 2, 150, cuda))
+            cpu, _ = step(tree_map(lambda t: t.cpu(), params), {"embeds": x.cpu()},
+                          init_cache(cfg, 2, 150, "cpu"))
+        else:
+            step = make_encoder_step(cfg)
+            card, cpu = step(params, {"embeds": x}), step(tree_map(lambda t: t.cpu(), params),
+                                                           {"embeds": x.cpu()})
+        torch.cuda.synchronize()
+        assert flash_ops.launches == before + cfg.n_layers
+        torch.testing.assert_close(card.cpu(), cpu, rtol=1e-4, atol=1e-4)
 
     @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen3-moe-235b-a22b"])
     def test_remat_policies_give_the_same_bits(self, cuda, arch):

@@ -9,9 +9,9 @@ the port's in f32). At bf16 the logits are held element by element; the KV
 cache, whose entries reach |x| ~ 20 where one bf16 step is 0.125, is held to
 2e-2 of its largest entry, because both packages are that far from the f32
 result there.
-Configs of every ported arch, full and smoke, are compared field by field,
-with ``param_count()`` and ``train_flops_per_token()``; the derived
-properties, ``decode_flops_per_token`` and ``cell_supported`` over every
+Configs of every arch (all ten are ported), full and smoke, are compared
+field by field, with ``param_count()`` and ``train_flops_per_token()``;
+the derived properties, ``decode_flops_per_token`` and ``cell_supported`` over every
 arch and shape cell; and the smoke configs of the two other dense GQA archs
 (phi4-mini, command-r-plus: logits, loss and gradients at f32, the
 gradient leaves to rtol=1e-4 with atol 1e-4 of the leaf's largest entry).
@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import ARCHS as J_ARCHS  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.configs import get_smoke_config as j_get_smoke_config  # noqa: E402
 from repro.models import forward as j_forward  # noqa: E402
@@ -120,22 +121,22 @@ def test_config_matches_reference(getters, arch):
 
 
 def test_unported_archs_raise():
-    assert set(ARCHS) - set(PORTED) == {"pixtral-12b", "hubert-xlarge"}
+    # no reference arch is left unported: each is registered and built with
+    # the reference's fields (the vlm and audio backbones too); only an
+    # unknown name raises
+    assert ARCHS == J_ARCHS and PORTED == J_ARCHS
     for arch in ARCHS:
-        if arch not in PORTED:
-            with pytest.raises(NotImplementedError, match="not yet ported"):
-                get_config(arch)
-    with pytest.raises(KeyError):
-        get_config("no-such-arch")
-
-
-def _port_config(j_cfg):
-    """The port's ModelConfig with the reference's field values (torch
-    dtypes): for the archs the port does not register."""
-    fields = {f.name: getattr(j_cfg, f.name) for f in dataclasses.fields(j_cfg)}
-    for name in ("dtype", "param_dtype"):
-        fields[name] = getattr(torch, jnp.dtype(fields[name]).name)
-    return ModelConfig(**fields)
+        for j_get, get in ((j_get_config, get_config), (j_get_smoke_config, get_smoke_config)):
+            j_cfg, t_cfg = j_get(arch), get(arch)
+            assert isinstance(t_cfg, ModelConfig) and t_cfg.name == j_cfg.name
+            for f in dataclasses.fields(j_cfg):
+                a, b = getattr(j_cfg, f.name), getattr(t_cfg, f.name)
+                assert (str(b).removeprefix("torch.") == jnp.dtype(a).name if f.name.endswith("dtype")
+                        else a == b), (arch, f.name)
+            assert len(model_spec(t_cfg)) == len(j_model_spec(j_cfg))
+    for get in (get_config, get_smoke_config):
+        with pytest.raises(KeyError):
+            get("no-such-arch")
 
 
 def test_shapes_match_reference():
@@ -149,16 +150,12 @@ def test_shapes_match_reference():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_derived_properties_and_cells_match_reference(arch):
     j_cfg = j_get_config(arch)
-    t_cfg = get_config(arch) if arch in PORTED else _port_config(j_cfg)
+    t_cfg = get_config(arch)
     assert t_cfg.is_attention_free == j_cfg.is_attention_free
     assert t_cfg.supports_long_context == j_cfg.supports_long_context
     assert t_cfg.has_decode == j_cfg.has_decode
     for shape in J_SHAPES:
         assert cell_supported(t_cfg, SHAPES[J_SHAPES.index(shape)]) == j_cell_supported(j_cfg, shape)
-    if arch not in PORTED:  # vlm and audio: no model_spec yet
-        with pytest.raises(NotImplementedError):
-            t_cfg.param_count()
-        return
     assert t_cfg.param_count() == j_cfg.param_count()
     assert t_cfg.active_param_count() == j_cfg.active_param_count()
     for context in (0, 4096, 32768, 524288):
