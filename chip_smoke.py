@@ -177,6 +177,32 @@ Phases, in order; the first failure ends the run with a non-zero exit:
     and a decode step profiled (busy time, idle share) and the peak memory;
     then its f32 prefill logits from 64 patch embeddings on the card against
     the CPU at 2 layers (1e-3, the same argmax).
+26. The BOINC engines on the card: the middleware's engines on
+    ``backend="torch", device="cuda"`` against the NumPy engines, bit for
+    bit. (1) Each pass alone at fleet scale, with the wall time of a call
+    on each backend and the torch call's device busy time and idle share:
+    ``BatchDispatchEngine`` scoring and eligibility over a full 1024-slot
+    feeder cache for 200 requests from a 10 000-host population (hosts
+    available 35-100% of the time, so the scaled runtimes are real
+    divisions), then 2048 requests dispatched through ``rpc_batch``;
+    ``BatchClientEngine.wrr_batch``, ``schedule_batch`` and
+    ``needs_work_batch`` on a 10 000-host feature-dense fleet;
+    ``HostArrays.advance_batch`` and ``completed_rows_batch`` on 10 000
+    hosts over five passes, a mutation of every ``_touch`` kind between
+    them, the card's column mirror equal to the host arrays after each.
+    (2) Whole ``run_spec`` runs, numpy against torch, identical by
+    ``assert_results_identical(..., job_states=True)``:
+    ``clique_half_fleet_defended``, ``blackout_half`` and ``cpu_gpu_mix``
+    at their test sizes and ``adversarial_10k`` (10 000 hosts, 3000 jobs,
+    a 500-host clique, 200 credit farmers, churn, epoch 60, half a
+    virtual day), with both walls. (3) A ``quorum_compare`` row at the
+    digest's shape, (4096,) x 2 f32; then a 1000-host, 2000-job run whose
+    jobs return 4096-element f64 vectors (``executor``; corruptions add
+    one uniform draw in [1, 2) to every element, ``corruptor``; 5%
+    erroneous and 10% malicious hosts, no clique), the quorum_compare
+    counter zeroed before the torch run and non-zero after it, the run
+    identical to NumPy's and profiled (the kernel's share of the device
+    time).
 Every main path (phases 3, 5, 7, 9, 11, 13, 15, 16, 17-21, 24, 25) must
 launch no wide-D flash kernel. Phases 24 and 25 print their walls.
 
@@ -198,7 +224,10 @@ rows' are phase 5's, 0; ``kernel`` on the flash rows); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The rows ``*_hubert`` take their launches from phase 24's grid run (and,
 forward, ``launches_encoder`` from its encoder step), ``*_pixtral`` from
-phase 25's serving run (and ``launches_vlm_path``).
+phase 25's serving run (and ``launches_vlm_path``). ``quorum_compare``
+also carries ``launches_engines``, the payload run's launches (phase 26),
+which are the ``launches`` of the row ``quorum_compare_digest`` (the
+digest's shape).
 Without a CUDA card, or without the repository's ``src/`` beside it, the
 script exits non-zero and prints no result.
 """
@@ -490,6 +519,431 @@ def profile_breakdown(fn, label: str, top: int = 10, calls: dict | None = None):
     for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]:
         log(f"    {us / 1e3:9.3f} ms  {key[:100]}")
     return dev_us, wall_ms
+
+
+# ---- phase 26: the BOINC engines on the card ---------------------------------
+# the middle population of benchmarks/bench_dispatch.py; the feeder cache is
+# the scheduler's default (1024 slots)
+ENGINE_HOSTS = 10_000
+N_SCORE = 200  # candidate scorings held bit for bit, per backend
+N_DISPATCH = 2048  # dispatched requests, in chunks of 256 (bench_dispatch's batch path)
+DISPATCH_CHUNK = 256
+# tensor payloads through the validation engine
+PAYLOAD_HOSTS = 1000
+PAYLOAD_JOBS = 2000
+PAYLOAD_LEN = 4096
+
+
+def engine_fleet(cl, n, seed, max_jobs=12, allow_inf=True):
+    """A feature-dense random client population over the classes of the
+    port's ``core.client`` (``cl``): heterogeneous resources, two projects
+    with unequal shares and debited balances, mixed job states, RAM-heavy
+    working sets, GPU jobs, non-CPU-intensive jobs and jobs with
+    est_flops == 0 (infinite remaining); the builder of the repo's client
+    engine tests, repeated here."""
+    import random
+
+    CPU, GPU = cl.ResourceType.CPU, cl.ResourceType.GPU
+    rng = random.Random(seed)
+    clients = []
+    for h in range(n):
+        res = {CPU: cl.ClientResource(CPU, rng.choice([1, 2, 4, 8]), rng.uniform(1e9, 4e10))}
+        if rng.random() < 0.4:
+            res[GPU] = cl.ClientResource(GPU, rng.choice([1, 2]), 1e12)
+        c = cl.Client(host_id=h + 1, resources=res,
+                      prefs=cl.ClientPrefs(buffer_lo_days=rng.choice([0.02, 0.1]),
+                                           buffer_hi_days=rng.choice([0.1, 0.5])),
+                      ram_bytes=rng.choice([1e9, 4e9, 8e9]))
+        c.attach(cl.ProjectAttachment(name="p", resource_share=100.0))
+        if rng.random() < 0.5:
+            c.attach(cl.ProjectAttachment(name="q", resource_share=rng.choice([50.0, 300.0])))
+            if rng.random() < 0.5:
+                c.rec.debit("p", rng.uniform(0, 1e5), 0.0)
+        flops_choices = [1e9, 2e10] + ([0.0] if allow_inf else [])
+        for i in range(rng.randrange(0, max_jobs)):
+            usage = {CPU: rng.choice([0.5, 1.0, 2.0])}
+            if GPU in res and rng.random() < 0.4:
+                usage[GPU] = 1.0
+            proj = "q" if ("q" in c.projects and rng.random() < 0.5) else "p"
+            c.jobs.append(cl.ClientJob(
+                instance_id=h * 1000 + i, job_id=h * 1000 + i, project=proj, app_name="a",
+                usage=usage, est_flops=rng.choice(flops_choices),
+                est_flop_count=rng.uniform(1e11, 5e13), deadline=rng.uniform(0.0, 2 * 86400.0),
+                est_wss=rng.choice([0.0, 0.5e9, 2e9]), fraction_done=rng.choice([0.0, 0.3, 0.99]),
+                fraction_done_exact=rng.random() < 0.3, runtime=rng.uniform(0, 3600),
+                state=rng.choice([cl.RunState.UNSTARTED, cl.RunState.RUNNING,
+                                  cl.RunState.PREEMPTED, cl.RunState.DONE]),
+                slice_start=rng.uniform(0, 1000), checkpoint_time=rng.uniform(0, 1000),
+                non_cpu_intensive=rng.random() < 0.1))
+        clients.append(c)
+    return clients
+
+
+def engine_world(core, backend, dev, n, seed):
+    """A columnar world of ``n`` hosts, 1-4 queued jobs each (running or
+    preempted, CPU usage 0.5-2), on the given engine backend."""
+    import random
+
+    cl = core.client
+    CPU = core.ResourceType.CPU
+    rng = random.Random(seed)
+    world = core.HostArrays(backend=backend, device=dev)
+    for h in range(n):
+        client = cl.Client(host_id=h + 1, resources={CPU: cl.ClientResource(CPU, 4, 1e10)},
+                           prefs=cl.ClientPrefs())
+        client.attach(cl.ProjectAttachment(name="p"))
+        world.add_host(h + 1, client, 4)
+        for k in range(rng.randrange(1, 5)):
+            cj = cl.ClientJob(instance_id=h * 100 + k, job_id=h * 100 + k, project="p",
+                              app_name="w", usage={CPU: rng.choice([0.5, 1.0, 2.0])},
+                              est_flops=1e10, est_flop_count=1e13, deadline=1e9,
+                              state=rng.choice([cl.RunState.RUNNING, cl.RunState.PREEMPTED]))
+            client.jobs.append(cj)
+            world.add_job(h + 1, cj, actual_total=rng.uniform(40.0, 200.0))
+        world.sync_run_state(h + 1)
+    return world
+
+
+def cuda_profile(fn):
+    """Run ``fn`` once under torch.profiler with device activity only (a
+    whole simulation holds too many host ops to record them); return the
+    device microseconds per kernel name (empty where CUPTI recorded none:
+    the run is not repeated), the wall milliseconds and ``fn``'s result. The
+    device records are summed straight from the profiler's raw results:
+    building its event tree (``key_averages``) over a run's million launches
+    takes minutes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    dev_us = {}
+    raw = getattr(prof.profiler, "kineto_results", None)
+    if raw is not None:
+        for e in raw.events():
+            if str(e.device_type()).endswith("CUDA") and e.duration_ns() > 0:
+                dev_us[e.name()] = dev_us.get(e.name(), 0.0) + e.duration_ns() / 1e3
+    else:
+        dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                  if e.self_device_time_total > 0}
+    if not dev_us:
+        log("torch.profiler recorded no device time for the run: busy time not measured")
+    return dev_us, wall_ms, out
+
+
+def engines_phase(dev, check, quorum_ops, quorum_compare_ref):
+    """Phase 26: the torch engine backend on the card against the NumPy
+    engines, bit for bit: each engine pass alone at fleet scale, whole
+    scenario runs, and tensor payloads through the validation engine's
+    ``quorum_compare`` digests. Returns the digest row's record and the
+    kernel's launches in the payload run."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from repro_torch import core
+    from repro_torch.core import scenarios as scen
+    from repro_torch.core.batch_dispatch import BatchDispatchEngine
+    from repro_torch.core.scheduler import ResourceRequest, ScheduleRequest
+
+    CPU = core.ResourceType.CPU
+    walls = {}
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def profile_pass(label, fn):
+        """Busy time and idle share of one call of a torch engine pass."""
+        dev_us, wall_ms = profile_breakdown(fn, f"[26] {label}", top=5)
+        walls[label] = {"profiled_wall_ms": wall_ms, "busy_ms": sum(dev_us.values()) / 1e3
+                        if dev_us else None}
+
+    # ---- 1a. dispatch scoring over a full feeder cache, 10 000 hosts -------
+    def dispatch_server(backend):
+        core.reset_ids()
+        server = core.ProjectServer(name="bench", purge_delay=1e18, engine_backend=backend,
+                                    engine_device=dev)
+        app = core.App(name="work", min_quorum=1, init_ninstances=1, delay_bound=6 * 3600.0,
+                       comparator=core.fuzzy_comparator(rtol=1e-6, atol=1e-9))
+        for osn in ("windows", "mac", "linux"):
+            app.add_version(core.AppVersion(id=core.next_id("appver"), app_name="work",
+                                            platform=core.Platform(osn, "x86_64"), version_num=1,
+                                            plan_class=core.default_cpu_plan_class()))
+        server.add_app(app)
+        rng = random.Random(SEED + 26)
+        hosts = []
+        for i in range(ENGINE_HOSTS):
+            # availabilities below 1 make the scaled runtimes real divisions
+            h = core.Host(id=i + 1, platforms=(core.Platform("windows", "x86_64"),),
+                          resources={CPU: core.ProcessingResource(CPU, 8, 2e10)},
+                          volunteer_id=i + 1, on_fraction=rng.choice([1.0, 0.9, 0.6, 0.35]))
+            server.add_host(h)
+            hosts.append(h)
+        for _ in range(N_DISPATCH + server.cache_size):
+            server.submit_job(core.Job(id=core.next_id("job"), app_name="work",
+                                       est_flop_count=0.25 * 3600 * 16.5e9), 0.0)
+        server.tick(0.0)
+        return server, hosts
+
+    def request(host):
+        return ScheduleRequest(host_id=host.id,
+                               requests={CPU: ResourceRequest(req_runtime=1.0, req_idle=0)})
+
+    def candidate_sig(rows):
+        if rows is None:
+            return None
+        pos, grp, scores, est, scaled, choices, disk, delay = rows
+        return ([a.tobytes() for a in (pos, grp, scores, est, scaled, disk, delay)],
+                [(c.version.id if c.version else None, sorted((k.name, v) for k, v in c.usage.items()),
+                  c.pf, c.size_q) for c in choices])
+
+    t_step = time.perf_counter()
+    srv = {b: dispatch_server(b) for b in ("numpy", "torch")}
+    rng = random.Random(SEED + 27)
+    picks = [(rng.randrange(ENGINE_HOSTS), rng.random()) for _ in range(N_SCORE)]
+    sigs, n_cand = {}, []
+    for backend, (server, hosts) in srv.items():
+        eng = BatchDispatchEngine(server.store, server.feeder, backend=backend, device=dev)
+        sched = server.schedulers[0]
+        args = [(sched, hosts[i], request(hosts[i]), CPU, int(u * eng.n), 0.0) for i, u in picks]
+        out, sec = timed(lambda: [eng.candidate_rows(*a) for a in args])
+        sigs[backend] = [candidate_sig(r) for r in out]
+        n_cand = [0 if r is None else len(r[0]) for r in out]
+        walls[f"dispatch_score_{backend}_ms"] = sec * 1e3 / N_SCORE
+        if backend == "torch":
+            profile_pass("dispatch scoring x20", lambda: [eng.candidate_rows(*a) for a in args[:20]])
+    if sigs["torch"] != sigs["numpy"]:
+        bad = next(i for i, (a, b) in enumerate(zip(sigs["torch"], sigs["numpy"])) if a != b)
+        raise AssertionError(f"dispatch scoring on the card differs from NumPy at request {bad}")
+    log(f"[26] dispatch scoring, {ENGINE_HOSTS} hosts, a {srv['numpy'][0].cache_size}-slot cache: "
+        f"{N_SCORE} requests bit-equal (candidates {min(n_cand)}-{max(n_cand)}); ms per call numpy "
+        f"{walls['dispatch_score_numpy_ms']:.3f}, torch {walls['dispatch_score_torch_ms']:.3f}")
+    replies = {}
+    for backend, (server, hosts) in srv.items():
+        got = []
+        t = time.perf_counter()
+        for base in range(0, N_DISPATCH, DISPATCH_CHUNK):
+            chunk = [request(hosts[k % ENGINE_HOSTS]) for k in range(base, base + DISPATCH_CHUNK)]
+            for r in server.rpc_batch(chunk, base * 1e-3):
+                got.append([(dj.job.id, dj.instance.id, dj.version.id, dj.est_runtime)
+                            for dj in r.jobs])
+            server.feeder.fill()
+        walls[f"dispatch_rpc_{backend}_ms"] = (time.perf_counter() - t) * 1e3 / N_DISPATCH
+        replies[backend] = got
+    if replies["torch"] != replies["numpy"]:
+        raise AssertionError("rpc_batch dispatch on the torch engines differs from NumPy")
+    n_jobs = sum(len(r) for r in replies["numpy"])
+    log(f"[26] dispatch through rpc_batch: {N_DISPATCH} requests, {n_jobs} jobs sent, replies "
+        f"identical; ms per request numpy {walls['dispatch_rpc_numpy_ms']:.3f}, torch "
+        f"{walls['dispatch_rpc_torch_ms']:.3f}")
+    del srv
+
+    # ---- 1b. the client engine on a 10 000-host fleet ------------------------
+    def wrr_sig(r):
+        by_name = lambda d: {rt.name: v for rt, v in d.items()}  # noqa: E731
+        return (list(r.deadline_misses), by_name(r.shortfall), by_name(r.idle_instances),
+                by_name(r.queue_dur), by_name(r.saturated_until))
+
+    def jobs_sig(js):
+        return [(j.instance_id, j.state, j.slice_start, j.deadline_miss) for j in js]
+
+    now = 500.0
+    fleets = {b: engine_fleet(core.client, ENGINE_HOSTS, SEED + 26) for b in ("numpy", "torch")}
+    engines = {"numpy": core.BatchClientEngine(),
+               "torch": core.BatchClientEngine(backend="torch", device=dev)}
+    client_out = {}
+    for backend, fleet in fleets.items():
+        eng = engines[backend]
+        wrr, s1 = timed(lambda: eng.wrr_batch(fleet, now))
+        runs, s2 = timed(lambda: eng.schedule_batch(fleet, now))
+        needs, s3 = timed(lambda: eng.needs_work_batch(fleet, now))
+        walls.update({f"wrr_batch_{backend}_s": s1, f"schedule_batch_{backend}_s": s2,
+                      f"needs_work_batch_{backend}_s": s3})
+        client_out[backend] = (
+            [wrr_sig(r) for r in wrr], [jobs_sig(r) for r in runs],
+            [(jobs_sig(c.jobs), jobs_sig(c.running)) for c in fleet],
+            [{rt.name: (q.req_runtime, q.req_idle, q.queue_dur) for rt, q in d.items()}
+             for d in needs])
+    for i, what in enumerate(("wrr_batch", "schedule_batch run sets", "client states",
+                              "needs_work_batch")):
+        if client_out["torch"][i] != client_out["numpy"][i]:
+            raise AssertionError(f"client engine on the card: {what} differ from NumPy")
+    fresh = engine_fleet(core.client, ENGINE_HOSTS, SEED + 26)
+    profile_pass("wrr_batch", lambda: engines["torch"].wrr_batch(fresh, now))
+    profile_pass("schedule_batch", lambda: engines["torch"].schedule_batch(fresh, now))
+    profile_pass("needs_work_batch", lambda: engines["torch"].needs_work_batch(fresh, now))
+    log(f"[26] client engine, {ENGINE_HOSTS} hosts: wrr_batch, schedule_batch and needs_work_batch "
+        f"bit-equal; s per call numpy / torch: wrr {walls['wrr_batch_numpy_s']:.3f} / "
+        f"{walls['wrr_batch_torch_s']:.3f}, schedule {walls['schedule_batch_numpy_s']:.3f} / "
+        f"{walls['schedule_batch_torch_s']:.3f}, needs {walls['needs_work_batch_numpy_s']:.3f} / "
+        f"{walls['needs_work_batch_torch_s']:.3f}")
+    del fleets, fresh, client_out
+
+    # ---- 1c. the world's accrual and completion passes, 10 000 hosts --------
+    worlds = {b: engine_world(core, b, dev, ENGINE_HOSTS, SEED + 26) for b in ("numpy", "torch")}
+    cl = core.client
+
+    def mutate(world, step):
+        """One mutation of every ``_touch`` kind, the same on both worlds."""
+        r = random.Random(SEED + step)
+        ids = [h for h in world.index if world.alive[world.index[h]]]
+        a, b, c, d, e, f, g = r.sample(ids, 7)
+        rows = world.row_of[world.index[a]]
+        if rows:
+            world.set_accrued(a, next(iter(rows)), 7.25)  # set_accrued
+        for j in world.clients[world.index[b]].jobs:
+            j.state = cl.RunState.RUNNING
+        world.sync_run_state(b)  # sync_run_state
+        cj = world.clients[world.index[c]].jobs
+        if cj:
+            cj[0].state = cl.RunState.DONE
+        world.mark_dirty(c)
+        world.resync_host(c)  # resync_host
+        world.remove_host(d)  # remove_host
+        extra = cl.ClientJob(instance_id=10_000_000 + step, job_id=10_000_000 + step, project="p",
+                             app_name="w", usage={CPU: 1.0}, est_flops=1e10, est_flop_count=1e13,
+                             deadline=1e9, state=cl.RunState.RUNNING)
+        world.clients[world.index[e]].jobs.append(extra)
+        world.add_job(e, extra, actual_total=55.0)  # add_job
+        world.sync_run_state(e)
+        world.advance_host(f, world.last_update[world.index[f]] + 5.0)  # advance_host
+        done = world.completed_rows(g)
+        if len(done):
+            world.remove_rows(g, done)  # remove_rows
+
+    def same_worlds(label):
+        wn, wt = worlds["numpy"], worlds["torch"]
+        for name in ("q_runtime", "q_frac", "busy", "q_count", "q_total", "q_running"):
+            if not np.array_equal(getattr(wn, name), getattr(wt, name)):
+                raise AssertionError(f"world {label}: {name} differs from NumPy")
+        m = wt._mirror
+        m.sync(wt)
+        for name in ("q_total", "q_runtime", "q_frac", "q_running", "q_weight", "busy"):
+            if not np.array_equal(getattr(m, name).cpu().numpy(), getattr(wt, name)):
+                raise AssertionError(f"world {label}: the card's {name} differs from the host's")
+
+    done_rows = {}
+    for step, t in enumerate((30.0, 60.0, 95.0, 160.0, 400.0)):
+        for backend, world in worlds.items():
+            ids = [h for h in world.index if world.alive[world.index[h]]]
+            if step == 4 and backend == "torch":
+                profile_pass("advance_batch", lambda: world.advance_batch(ids, t))
+                out = {"done": None}
+                profile_pass("completed_rows_batch",
+                             lambda: out.update(done=world.completed_rows_batch(ids)))
+                done = out["done"]
+            else:
+                _, s = timed(lambda: world.advance_batch(ids, t))
+                done, s2 = timed(lambda: world.completed_rows_batch(ids))
+                walls.setdefault(f"advance_batch_{backend}_s", []).append(s)
+                walls.setdefault(f"completed_rows_batch_{backend}_s", []).append(s2)
+            done_rows[backend] = {h: r.tolist() for h, r in done.items()}
+            mutate(world, step)
+        if done_rows["torch"] != done_rows["numpy"]:
+            raise AssertionError(f"world pass {step}: completed rows differ from NumPy")
+        same_worlds(f"pass {step}")
+    recs = [(wn.rec.accounts, wt.rec.accounts) for wn, wt in
+            zip(worlds["numpy"].clients, worlds["torch"].clients) if wn is not None]
+    if any({k: (v.balance, v.total_used) for k, v in a.items()}
+           != {k: (v.balance, v.total_used) for k, v in b.items()} for a, b in recs):
+        raise AssertionError("world passes: REC debits differ from NumPy")
+    log(f"[26] world, {ENGINE_HOSTS} hosts: 5 accrual and completion passes with every _touch kind "
+        f"between them, bit-equal (host arrays, the card's mirror, REC debits); s per pass numpy / "
+        f"torch: advance {np.mean(walls['advance_batch_numpy_s']):.4f} / "
+        f"{np.mean(walls['advance_batch_torch_s']):.4f}, completion "
+        f"{np.mean(walls['completed_rows_batch_numpy_s']):.4f} / "
+        f"{np.mean(walls['completed_rows_batch_torch_s']):.4f}")
+    del worlds
+    log(f"[26] step 1 wall {time.perf_counter() - t_step:.1f} s")
+
+    # ---- 2. whole runs: three specs of the matrix and adversarial_10k --------
+    t_step = time.perf_counter()
+    DAY, HOUR = scen.DAY, scen.HOUR
+    specs = [
+        (scen.ScenarioSpec(name="clique_half_fleet_defended", seed=2, clique=scen.Clique(size=6),
+                           n_jobs=40, defense=core.DefensePolicy()), 0.0),
+        (scen.ScenarioSpec(name="blackout_half", seed=3,
+                           outage=scen.Outage(start=1.0 * DAY, duration=8 * HOUR, fraction=0.5),
+                           horizon=3 * DAY), 0.0),
+        (scen.ScenarioSpec(name="cpu_gpu_mix", gpu=True, gpu_fraction=0.5, n_jobs=80,
+                           est_hours=0.4), 0.0),
+        (scen.ScenarioSpec(name="adversarial_10k", seed=12, n_hosts=10_000, n_jobs=3000,
+                           horizon=0.5 * DAY, est_hours=0.05, clique=scen.Clique(size=500),
+                           farm=scen.CreditFarm(count=200, factor=8.0),
+                           churn_rate=1.0 / (30 * DAY), availability=0.9), 60.0),
+    ]
+    for spec, epoch in specs:
+        a, sa = timed(lambda: scen.run_spec(spec, epoch=epoch))
+        b, sb = timed(lambda: scen.run_spec(spec, epoch=epoch, backend="torch", device=dev))
+        scen.assert_results_identical(a, b, "torch backend on the card vs numpy engines",
+                                      job_states=True)
+        c = a.server.counts()
+        walls[f"run_{spec.name}_s"] = (sa, sb)
+        log(f"[26] run_spec {spec.name} ({spec.n_hosts} hosts, {spec.n_jobs} jobs, epoch {epoch}): "
+            f"identical with job states; jobs_success {c['jobs_success']}, wrong_accepted "
+            f"{a.metrics.wrong_accepted}, replication {a.metrics.replication_overhead:.4f}; wall s "
+            f"numpy {sa:.2f}, torch {sb:.2f}")
+    log(f"[26] step 2 wall {time.perf_counter() - t_step:.1f} s")
+
+    # ---- 3. tensor payloads through the validation engine --------------------
+    t_step = time.perf_counter()
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    qa = torch.randn(PAYLOAD_LEN, generator=gen, device=dev)
+    qb = qa.clone()
+    qb[:7] += 1.5
+    rtol_d, atol_d = 1e-6, 1e-9  # the App's fuzzy_comparator
+    rec = check("quorum_compare_digest", f"({PAYLOAD_LEN},) x2", f32,
+                lambda a, b: quorum_ops.quorum_compare(a, b, rtol=rtol_d, atol=atol_d),
+                lambda a, b: quorum_compare_ref(a, b, rtol_d, atol_d),
+                lambda a, b: torch.isclose(a, b, rtol=rtol_d, atol=atol_d).logical_not().sum(),
+                (qa, qb), 1e-5, 2 * PAYLOAD_LEN * 4, 6 * PAYLOAD_LEN, PEAK_OPS["float32"])
+
+    def execute(job, host):
+        return np.random.default_rng(job.id).standard_normal(PAYLOAD_LEN)
+
+    def corrupt(truth, r):
+        return truth + r.uniform(1.0, 2.0)
+
+    spec = scen.ScenarioSpec(name="tensor_payloads", seed=5, n_hosts=PAYLOAD_HOSTS,
+                             n_jobs=PAYLOAD_JOBS, error_prob=0.05, malicious_fraction=0.1)
+
+    def payload_run(**kw):
+        server, sim, pop = scen.build(spec, **kw)
+        sim.executor, sim.corruptor = execute, corrupt
+        m = sim.run(spec.horizon)
+        sim.audit_validation()
+        return scen.ScenarioResult(spec=spec, server=server, sim=sim, metrics=m, population=pop)
+
+    a, sa = timed(lambda: payload_run())
+    quorum_ops.launches = 0
+    dev_us, wall_ms, b = cuda_profile(lambda: payload_run(backend="torch", device=dev))
+    launches = quorum_ops.launches
+    scen.assert_results_identical(a, b, "torch digests on the card vs numpy", job_states=True)
+    if not launches:
+        raise AssertionError("the payload run launched no quorum_compare kernel")
+    busy = sum(dev_us.values()) / 1e3
+    quorum_busy = sum(v for k, v in dev_us.items() if "quorum" in k) / 1e3
+    walls["payload_s"] = (sa, wall_ms / 1e3)
+    c = a.server.counts()
+    log(f"[26] tensor payloads ({PAYLOAD_HOSTS} hosts, {PAYLOAD_JOBS} jobs of {PAYLOAD_LEN} f64, "
+        f"error_prob 0.05, malicious 0.1): identical with job states; jobs_success "
+        f"{c['jobs_success']}, wrong_accepted {a.metrics.wrong_accepted}, quorum_compare launches "
+        f"{launches}; wall s numpy {sa:.2f}, torch (profiled) {wall_ms / 1e3:.2f}; device busy "
+        f"{busy:.3f} ms, of it quorum_compare {quorum_busy:.3f} ms "
+        f"({quorum_busy / busy if busy else float('nan'):.3f})")
+    for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {us / 1e3:9.3f} ms  {key[:100]}")
+    log(f"[26] step 3 wall {time.perf_counter() - t_step:.1f} s")
+    log(f"[26] walls {json.dumps(walls)}")
+    return rec, launches
 
 
 def main() -> int:
@@ -2021,6 +2475,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[25] phase wall {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 26. the BOINC engines on the card ---------------------------------
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["quorum_compare_digest"], engine_launches = engines_phase(
+        dev, check, quorum_ops, quorum_compare_ref)
+    log(f"[26] phase wall {time.perf_counter() - t_phase:.1f} s")
+
     # ---- result lines ------------------------------------------------------
     # each row's TPU kernel and CUDA source, from the kernel its name starts
     # with; the backward rows name their forward's TPU kernel (the reference
@@ -2055,7 +2517,9 @@ def main() -> int:
                      **{n: hubert_train_launches[n.replace("_hubert", "")] for n in results
                         if n.endswith("_hubert")},
                      **{n: pixtral_launches[n.replace("_pixtral", "")] for n in results
-                        if n.endswith("_pixtral")}}
+                        if n.endswith("_pixtral")},
+                     # the validation engine's digests of the tensor-payload run (phase 26)
+                     "quorum_compare_digest": engine_launches}
     kernels = []
     for name, rec in results.items():
         base, kernel = name.replace("_f32", ""), kernel_of(name)
@@ -2094,6 +2558,11 @@ def main() -> int:
         if name.endswith("_pixtral"):
             row["launches_in"] = "phase 25, serving pixtral-12b from token prompts"
             row["launches_vlm_path"] = vlm["launches"][name.replace("_pixtral", "")]
+        if name == "quorum_compare":
+            row["launches_engines"] = engine_launches
+        if name == "quorum_compare_digest":
+            row["launches_in"] = ("phase 26, the validation engine's digests of 4096-element "
+                                  "payloads on the torch engines")
         if name == "ssd_scan":
             row["launches_serve"] = mamba_launches[name]
             row["launches_serve_zamba2"] = zamba_launches[name]

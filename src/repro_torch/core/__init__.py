@@ -1,11 +1,14 @@
 """BOINC core middleware, the port's own copy of ``repro.core``.
 
-The modules are the reference's, verbatim apart from the engine backends:
-``backend.resolve_backend`` accepts ``"numpy"`` only, and the reference's
-``backend="jax"`` branches are gone. The copies stay plain Python and NumPy;
-the grid trainer's gradient payloads are the only tensors that pass through
-them. ``scenarios`` and ``coordinator`` are not copied: nothing the trainer
-runs needs them.
+The modules are the reference's, verbatim apart from the engine backends.
+Where the reference's engines (dispatch scoring, the client engine, the
+columnar world, the validation digests) take ``backend="jax"``, the port's
+take ``backend="torch"`` with a ``device=`` (``"cuda"`` unless the caller
+asks for ``"cpu"``): ``torch_backend`` runs their dense passes as eager
+float64 torch ops, bit-identical to the NumPy engines, and homogeneous
+tensor payload digests through the ``quorum_compare`` kernel. NumPy stays
+the default everywhere. ``scenarios`` (the scenario layer and ``run_parity``)
+and ``coordinator`` (Science United) are copies of the reference's.
 
 Layout (paper section in parens):
   types        — projects/hosts/apps/app-versions/plan-classes/jobs (§2, §3)
@@ -26,6 +29,11 @@ Layout (paper section in parens):
   client       — WRR/EDF resource scheduling + work fetch (§6.1–6.2)
   batch_client — vectorized host-population client engine (§6.1–6.2, §9)
   world        — columnar host-population state (§9)
+  backend      — engine backend names and device resolution
+  torch_backend — the engines' dense passes as eager torch ops, digests
+                 through the quorum_compare kernel
+  scenarios    — trace-driven & adversarial scenario generation (§3.4, §9)
+  coordinator  — Science United account manager (§10.1)
   server       — project-server facade w/ daemon set (§5.1)
   simulator    — EmBOINC-style virtual-time emulator (§9)
 """
@@ -36,6 +44,7 @@ from .batch_client import BatchClientEngine
 from .batch_dispatch import BatchDispatchEngine
 from .batch_validate import BatchValidationEngine
 from .client import Client, ClientJob, ClientPrefs, ClientResource, ProjectAttachment
+from .coordinator import AMReply, Coordinator, VettedProject
 from .credit import CreditSystem, peak_flop_count
 from .defense import DefenseLayer, DefensePolicy
 from .estimation import RuntimeEstimator
@@ -49,6 +58,19 @@ from .scheduler import (
     ScheduleReply,
     ScheduleRequest,
     Scheduler,
+)
+from .scenarios import (
+    Clique,
+    CreditFarm,
+    Outage,
+    ScenarioResult,
+    ScenarioSpec,
+    Sybil,
+    TraceReplay,
+    generate_population,
+    run_parity,
+    run_spec,
+    sybil_identity_ids,
 )
 from .server import ProjectServer
 from .shard import ShardMap, ShardPolicy, ShardStats
@@ -86,6 +108,7 @@ from .validator import (
 from .world import ExpDrawCache, HostArrays
 
 __all__ = [
+    "AMReply",
     "AdaptiveReplication",
     "App",
     "AppVersion",
@@ -98,7 +121,10 @@ __all__ = [
     "ClientJob",
     "ClientPrefs",
     "ClientResource",
+    "Clique",
     "CompletedResult",
+    "Coordinator",
+    "CreditFarm",
     "CreditSystem",
     "DefenseLayer",
     "DefensePolicy",
@@ -118,14 +144,17 @@ __all__ = [
     "JobStore",
     "KeywordPrefs",
     "LinearBoundedAllocator",
-    "Platform",
+    "Outage",
     "PlanClass",
+    "Platform",
     "ProcessingResource",
     "ProjectAttachment",
     "ProjectServer",
     "ResourceRequest",
     "ResourceType",
     "RuntimeEstimator",
+    "ScenarioResult",
+    "ScenarioSpec",
     "ScheduleReply",
     "ScheduleRequest",
     "Scheduler",
@@ -133,14 +162,18 @@ __all__ = [
     "ShardPolicy",
     "ShardStats",
     "SimMetrics",
+    "Sybil",
+    "TraceReplay",
     "Transitioner",
     "ValidateState",
+    "VettedProject",
     "bitwise_digest_batch",
     "bitwise_equal",
     "check_set",
     "default_cpu_plan_class",
     "digest_batch_for",
     "fuzzy_comparator",
+    "generate_population",
     "gpu_plan_class",
     "hr_class",
     "keyword_score",
@@ -148,4 +181,7 @@ __all__ = [
     "next_id",
     "peak_flop_count",
     "reset_ids",
+    "run_parity",
+    "run_spec",
+    "sybil_identity_ids",
 ]

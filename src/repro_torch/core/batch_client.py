@@ -53,7 +53,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, TYPE_CHECKING
 
 import numpy as np
 
-from .backend import resolve_backend
+from . import torch_backend
+from .backend import resolve_engine
 from .client import Client, ClientJob, RunState, WorkRequest, WRRResult
 from .scheduler import ResourceRequest
 from .types import ResourceType
@@ -109,9 +110,12 @@ class BatchClientEngine:
     ``Client._apply_run_set``.
     """
 
-    def __init__(self, backend: str = "numpy") -> None:
-        # NumPy only in the port (core/backend.py)
-        self.backend = resolve_backend(backend)
+    def __init__(self, backend: str = "numpy", device="cuda") -> None:
+        # "torch" runs the two dense greedy passes (WRR event feasibility,
+        # run-set rank loop) on ``device`` through core.torch_backend —
+        # bit-identical to the NumPy loops (no multiplies inside them);
+        # snapshotting, ordering keys, and the sparse event tail stay host-side
+        self.backend, self.device = resolve_engine(backend, device)
 
     # ------------------------------------------------------------------
     # snapshot construction
@@ -530,6 +534,14 @@ class BatchClientEngine:
                 np.add.reduce(rem_w, axis=0, where=sel) if J else np.zeros(H)
             )
 
+        # torch backend: the per-event inputs (usage, thresholds, caps, RAM)
+        # are static across the event loop — upload once, run each event's
+        # greedy over the device context
+        ctx = (
+            torch_backend.WRRGreedyContext(s, u_w, u_eps, u_zero, wss_w, self.device)
+            if (self.backend == "torch" and J) else None
+        )
+
         busy = {rt: np.zeros(H) for rt in rtypes}
         t = np.zeros(H)
         not_done = live_w.copy()
@@ -550,10 +562,13 @@ class BatchClientEngine:
         while active.any() and ev < _MAX_EVENTS:
             ev += 1
             # greedy maximal set in WRR order under resource + RAM caps
-            running, cap = self._greedy(
-                s, not_done, active, u_w, u_eps, u_zero, wss_w,
-                row_counts=row_counts,
-            )
+            if ctx is not None:
+                running, cap = ctx.greedy(not_done, active, row_counts=row_counts)
+            else:
+                running, cap = self._greedy(
+                    s, not_done, active, u_w, u_eps, u_zero, wss_w,
+                    row_counts=row_counts,
+                )
             if ev == 1:
                 # the scalar idle computation re-runs the greedy over the
                 # initial pending set — identical to this first event's pass
@@ -742,43 +757,51 @@ class BatchClientEngine:
 
         # ram * ram_frac is computed here in NumPy on both backends: the
         # product must be materialized before it ever meets the greedy's
-        # subtract chain (FMA staging contract, see core/jax_backend)
+        # subtract chain (FMA staging contract, see core/torch_backend)
         ram0 = s.ram * s.ram_frac
         rhs1 = s.ncpu + 1e-12
         rhs2 = (s.ncpu + 1.0) + 1e-12
-        cap = {rt: s.nins[rt].copy() for rt in u_s}
-        cpu_cpu = np.zeros(H)
-        cpu_all = np.zeros(H)
-        ram_left = ram0
-        chosen = np.zeros((J, H), dtype=bool)
-        buf = np.empty(H, dtype=bool)
-        for r in range(J):
-            lv = live_s[r]
-            if not lv.any():
-                continue
-            cu = cu_s[r]
-            gpu_r = gpu_s[r]
-            feas = lv.copy()
-            for rt, u in u_s.items():
-                # u > 0 gate: the scalar loop only visits usage keys the
-                # job actually carries, and real usage dicts hold
-                # positive entries
-                np.less(cap[rt], u[r] - 1e-12, out=buf)
-                np.logical_and(buf, u[r] > 0.0, out=buf)
-                np.logical_and(feas, ~buf, out=feas)
-            np.logical_and(feas, ~(~gpu_r & ((cpu_cpu + cu) > rhs1)), out=feas)
-            np.logical_and(feas, (cpu_all + cu) <= rhs2, out=feas)
-            np.logical_and(feas, wss_s[r] <= ram_left, out=feas)
-            np.logical_or(feas, nci_s[r] & lv, out=feas)  # §3.5: always run
-            if not feas.any():
-                continue
-            chosen[r] = feas
-            for rt, u in u_s.items():
-                sel = feas if s.all_has[rt] else (feas & s.has[rt])
-                np.subtract(cap[rt], u[r], out=cap[rt], where=sel)
-            np.add(cpu_cpu, cu, out=cpu_cpu, where=feas & ~gpu_r)
-            np.add(cpu_all, cu, out=cpu_all, where=feas)
-            np.subtract(ram_left, wss_s[r], out=ram_left, where=feas)
+        if self.backend == "torch":
+            chosen = torch_backend.run_set_greedy(
+                live_s, cu_s, wss_s, gpu_s, nci_s, u_s,
+                {rt: s.has[rt] for rt in u_s},
+                {rt: s.nins[rt] for rt in u_s},
+                ram0, rhs1, rhs2, self.device,
+            )
+        else:
+            cap = {rt: s.nins[rt].copy() for rt in u_s}
+            cpu_cpu = np.zeros(H)
+            cpu_all = np.zeros(H)
+            ram_left = ram0
+            chosen = np.zeros((J, H), dtype=bool)
+            buf = np.empty(H, dtype=bool)
+            for r in range(J):
+                lv = live_s[r]
+                if not lv.any():
+                    continue
+                cu = cu_s[r]
+                gpu_r = gpu_s[r]
+                feas = lv.copy()
+                for rt, u in u_s.items():
+                    # u > 0 gate: the scalar loop only visits usage keys the
+                    # job actually carries, and real usage dicts hold
+                    # positive entries
+                    np.less(cap[rt], u[r] - 1e-12, out=buf)
+                    np.logical_and(buf, u[r] > 0.0, out=buf)
+                    np.logical_and(feas, ~buf, out=feas)
+                np.logical_and(feas, ~(~gpu_r & ((cpu_cpu + cu) > rhs1)), out=feas)
+                np.logical_and(feas, (cpu_all + cu) <= rhs2, out=feas)
+                np.logical_and(feas, wss_s[r] <= ram_left, out=feas)
+                np.logical_or(feas, nci_s[r] & lv, out=feas)  # §3.5: always run
+                if not feas.any():
+                    continue
+                chosen[r] = feas
+                for rt, u in u_s.items():
+                    sel = feas if s.all_has[rt] else (feas & s.has[rt])
+                    np.subtract(cap[rt], u[r], out=cap[rt], where=sel)
+                np.add(cpu_cpu, cu, out=cpu_cpu, where=feas & ~gpu_r)
+                np.add(cpu_all, cu, out=cpu_all, where=feas)
+                np.subtract(ram_left, wss_s[r], out=ram_left, where=feas)
 
         out: List[List[ClientJob]] = [[] for _ in range(H)]
         for r, h in zip(*np.nonzero(chosen)):

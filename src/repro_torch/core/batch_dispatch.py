@@ -38,7 +38,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .backend import resolve_backend
+from . import torch_backend
+from .backend import resolve_engine
 from .keywords import keyword_score
 from .scheduler import (
     Candidate,
@@ -85,7 +86,8 @@ class BatchDispatchEngine:
 
     def __init__(self, store: JobStore, feeder: Feeder,
                  backend: str = "numpy",
-                 shard_map=None, shard: Optional[int] = None) -> None:
+                 shard_map=None, shard: Optional[int] = None,
+                 device="cuda") -> None:
         self.store = store
         self.feeder = feeder
         # federated dispatch (core/shard.py): when given, the snapshot only
@@ -97,9 +99,10 @@ class BatchDispatchEngine:
         # unchanged.
         self.shard_map = shard_map
         self.shard = shard
-        # execution backend for the dense mask/score passes: NumPy only in
-        # the port (core/backend.py)
-        self.backend = resolve_backend(backend)
+        # execution backend for the dense mask/score passes; "torch" runs
+        # them as eager ops on ``device`` (core.torch_backend; bit-identical
+        # to the NumPy path — 4th parity axis), sparse tails stay host-side
+        self.backend, self.device = resolve_engine(backend, device)
         # cache-content generation this snapshot was built at; the
         # scheduler's persistent-dispatch path rebuilds when it trails
         # ``feeder.version`` (dispatch-tail mutations arrive as events and
@@ -258,7 +261,11 @@ class BatchDispatchEngine:
         # rotated scan order, then first eligible slot per job (the scalar
         # scan's seen_jobs dedupe keeps the first valid slot it encounters)
         rot = np.arange(start, start + n) % n
-        elig = self.valid[rot] & ((self.target[rot] < 0) | (self.target[rot] == host.id))
+        if self.backend == "torch":
+            elig = torch_backend.dispatch_elig(self.valid, self.target, start, host.id,
+                                               self.device)
+        else:
+            elig = self.valid[rot] & ((self.target[rot] < 0) | (self.target[rot] == host.id))
         pos = rot[elig]
         if pos.size == 0:
             return None
@@ -338,8 +345,12 @@ class BatchDispatchEngine:
         kvec_all = kw_val[self.kw_idx[reps]]
         kok = kw_ok[self.kw_idx[reps]]
 
-        hr_ok = (hr_rep == -1) | (hr_rep == host_hr_rep)
-        mask = g_ok[inv] & hr_ok & kok
+        if self.backend == "torch":
+            mask = torch_backend.dispatch_group_mask(g_ok[inv], hr_rep, host_hr_rep, kok,
+                                                     self.device)
+        else:
+            hr_ok = (hr_rep == -1) | (hr_rep == host_hr_rep)
+            mask = g_ok[inv] & hr_ok & kok
         if not mask.any():
             return None
         r = reps[mask]
@@ -355,21 +366,30 @@ class BatchDispatchEngine:
         res = host.resources.get(rtype)
         avail = (res.availability if res else 1.0) * host.on_fraction
 
-        # §6.4 weighted score sum — same IEEE op order as Scheduler._score
-        scores = W_KEYWORD * kvec_all[mask]
-        if bal_r is not None:
-            scores += W_BALANCE * bal_r
-        scores += W_PRIORITY * self.prio[r]
-        scores += W_SKIPPED * np.minimum(self.skips[r], 5.0)
-        # fast-check inputs, vectorized: est runtime and availability-
-        # scaled runtime for the whole candidate set in two array ops
-        est = np.full(r.shape, np.inf, dtype=np.float64)
-        pos_pf = pf_r > 0.0
-        est[pos_pf] = self.est_flop[r][pos_pf] / pf_r[pos_pf]
-        if avail <= 0:
-            scaled = np.full(r.shape, np.inf, dtype=np.float64)
+        if self.backend == "torch":
+            # dense base score + runtime estimates on the device; eager ops
+            # in the NumPy accumulation order, bit-for-bit
+            scores, est, scaled = torch_backend.dispatch_scores(
+                kvec_all[mask], bal_r, self.prio[r], self.skips[r],
+                self.est_flop[r], pf_r, avail,
+                (W_KEYWORD, W_BALANCE, W_PRIORITY, W_SKIPPED), self.device,
+            )
         else:
-            scaled = est / avail
+            # §6.4 weighted score sum — same IEEE op order as Scheduler._score
+            scores = W_KEYWORD * kvec_all[mask]
+            if bal_r is not None:
+                scores += W_BALANCE * bal_r
+            scores += W_PRIORITY * self.prio[r]
+            scores += W_SKIPPED * np.minimum(self.skips[r], 5.0)
+            # fast-check inputs, vectorized: est runtime and availability-
+            # scaled runtime for the whole candidate set in two array ops
+            est = np.full(r.shape, np.inf, dtype=np.float64)
+            pos_pf = pf_r > 0.0
+            est[pos_pf] = self.est_flop[r][pos_pf] / pf_r[pos_pf]
+            if avail <= 0:
+                scaled = np.full(r.shape, np.inf, dtype=np.float64)
+            else:
+                scaled = est / avail
 
         # sparse locality / size-match adjustments stay host-side on both
         # backends (set intersections per row; identical += statements)

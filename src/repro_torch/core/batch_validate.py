@@ -45,7 +45,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .backend import resolve_engine
 from .store import JobStore
+from .torch_backend import fuzzy_digest_torch
 from .types import (
     App,
     InstanceOutcome,
@@ -198,11 +200,13 @@ def _scalar_largest_group(app: App, successes: List[JobInstance]) -> int:
 class BatchValidationEngine:
     """Builds a :class:`ValidationPlan` per transitioner tick."""
 
-    def __init__(self, store: JobStore, backend: str = "numpy") -> None:
+    def __init__(self, store: JobStore, backend: str = "numpy", device="cuda") -> None:
         self.store = store
-        # the reference's "jax" digest route is not ported: every
-        # comparator takes the pure-NumPy digest path
-        self.backend = backend
+        # "torch": homogeneous float tensor payload batches of fuzzy
+        # comparators route through the kernels/quorum_compare kernel on
+        # ``device`` (its plain version on the CPU); scalars/mixed payloads
+        # and every other comparator keep the pure-NumPy digest path
+        self.backend, self.device = resolve_engine(backend, device)
         self._digest_fns: Dict[str, Any] = {}
 
     def digest_fn(self, app: App):
@@ -210,6 +214,10 @@ class BatchValidationEngine:
         fn = self._digest_fns.get(app.name, _UNSET)
         if fn is _UNSET:
             fn = digest_batch_for(app.comparator)
+            if fn is not None and self.backend == "torch":
+                params = getattr(app.comparator, "fuzzy_params", None)
+                if params is not None:
+                    fn = fuzzy_digest_torch(fn, *params, self.device)
             self._digest_fns[app.name] = fn
         return fn
 

@@ -72,10 +72,11 @@ class Transitioner:
     instance: int = 0
     n_instances: int = 1
     batch_validate: bool = True
-    # execution backend handed to BatchValidationEngine ("numpy" | "jax");
-    # "jax" routes homogeneous tensor payload digests through the
-    # kernels/quorum_compare Pallas kernel
+    # execution backend handed to BatchValidationEngine ("numpy" | "torch");
+    # "torch" routes homogeneous tensor payload digests through the
+    # kernels/quorum_compare kernel on ``engine_device``
     engine_backend: str = "numpy"
+    engine_device: Any = "cuda"
     # defense layer (§3.4): validation outcomes feed its agreement stats +
     # per-(host, version) quota table. Scalar path calls it inline; batch
     # path defers the identical (valid, invalid) pair lists through
@@ -114,7 +115,8 @@ class Transitioner:
                 from .batch_validate import BatchValidationEngine
 
                 self._engine = BatchValidationEngine(
-                    self.store, backend=self.engine_backend
+                    self.store, backend=self.engine_backend,
+                    device=self.engine_device,
                 )
             plan = self._engine.prepare(
                 pending, now, self.instance, self.n_instances,

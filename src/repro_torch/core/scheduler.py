@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .adaptive import AdaptiveReplication
+from .backend import resolve_engine
 from .allocation import LinearBoundedAllocator
 from .defense import DefenseLayer
 from .estimation import RuntimeEstimator
@@ -288,10 +289,12 @@ class Scheduler:
     # scalar scan (tests/test_batch_dispatch.py); False keeps the scalar
     # O(slots²) reference path as the oracle.
     vector_dispatch: bool = False
-    # execution backend handed to BatchDispatchEngine ("numpy" | "jax");
-    # "jax" runs the dense mask/score passes as staged jits, bit-identical
-    # to the NumPy engine (4th parity axis in core/scenarios.run_parity)
+    # execution backend handed to BatchDispatchEngine ("numpy" | "torch");
+    # "torch" runs the dense mask/score passes as eager ops on
+    # ``engine_device``, bit-identical to the NumPy engine (4th parity axis
+    # in core/scenarios.run_parity)
     engine_backend: str = "numpy"
+    engine_device: Any = "cuda"
     # defense layer (§3.4 work-spreading / HR census / host punishment);
     # enforced in the shared slow-check + dispatch choke points, so the
     # scalar and vectorized tails stay result-identical
@@ -323,12 +326,14 @@ class Scheduler:
             engine is None
             or engine.version != feeder.version
             or engine.backend != self.engine_backend
+            or engine.device != resolve_engine(self.engine_backend, self.engine_device)[1]
         ):
             # the constructor stamps the snapshot with feeder.version
             engine = BatchDispatchEngine(self.store, feeder,
                                          backend=self.engine_backend,
                                          shard_map=self.shard_map,
-                                         shard=key)
+                                         shard=key,
+                                         device=self.engine_device)
             feeder._engines[key] = engine
         return engine
 
@@ -365,7 +370,8 @@ class Scheduler:
         engine = BatchDispatchEngine(self.store, self.feeder,
                                      backend=self.engine_backend,
                                      shard_map=self.shard_map,
-                                     shard=self.shard if self.shard_map is not None else None)
+                                     shard=self.shard if self.shard_map is not None else None,
+                                     device=self.engine_device)
         replies = [self._handle_one(req, now, engine=engine) for req in reqs]
         if self.feeder._engines:
             self.feeder.invalidate()  # slot mutations bypassed the snapshot

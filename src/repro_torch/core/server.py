@@ -15,6 +15,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 from .adaptive import AdaptiveReplication
+from .backend import resolve_engine
 from .allocation import LinearBoundedAllocator
 from .credit import CreditSystem
 from .defense import DefenseLayer, DefensePolicy
@@ -61,11 +62,13 @@ class ProjectServer:
     # GridSimulation(vector_world=True) flips this on via
     # :meth:`set_vector_dispatch`.
     vector_dispatch: bool = False
-    # execution backend for the batch engines ("numpy" | "jax"), handed to
-    # every Scheduler (dispatch scoring) and Transitioner (validation
+    # execution backend for the batch engines ("numpy" | "torch"), handed
+    # to every Scheduler (dispatch scoring) and Transitioner (validation
     # digests); engine outputs are bit-identical either way (4th parity
-    # axis in core/scenarios.run_parity)
+    # axis in core/scenarios.run_parity). The torch engines run on
+    # ``engine_device`` ("cuda" unless "cpu" is asked for; ignored by NumPy)
     engine_backend: str = "numpy"
+    engine_device: Any = "cuda"
     # defense-in-depth replica placement (§3.4): work-spreading, HR census
     # pinning, host punishment. None disables the layer entirely.
     defense_policy: Optional[DefensePolicy] = None
@@ -94,6 +97,9 @@ class ProjectServer:
     assimilated_outputs: List[Any] = field(default_factory=list)
 
     def __post_init__(self) -> None:
+        # an unknown backend, or the torch backend on "cuda" without a card,
+        # raises here rather than at the first RPC or daemon pass
+        resolve_engine(self.engine_backend, self.engine_device)
         self.feeder = Feeder(store=self.store, cache_size=self.cache_size)
         if self.defense is None and self.defense_policy is not None:
             self.defense = DefenseLayer(policy=self.defense_policy, store=self.store)
@@ -122,6 +128,7 @@ class ProjectServer:
                 seed=i,
                 vector_dispatch=self.vector_dispatch,
                 engine_backend=self.engine_backend,
+                engine_device=self.engine_device,
                 defense=self.defense,
                 shard_map=self.shard_map,
                 shard=i,
@@ -137,6 +144,7 @@ class ProjectServer:
                 n_instances=self.n_daemon_instances,
                 batch_validate=self.batch_validate,
                 engine_backend=self.engine_backend,
+                engine_device=self.engine_device,
                 defense=self.defense,
             )
             for i in range(self.n_daemon_instances)

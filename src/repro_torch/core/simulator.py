@@ -272,6 +272,7 @@ class GridSimulation:
         vector_world: bool = True,
         epoch: float = 0.0,
         backend: str = "numpy",
+        device="cuda",
     ) -> None:
         self.server = server
         self.specs: Dict[int, HostSpec] = {s.host.id: s for s in population}
@@ -299,12 +300,13 @@ class GridSimulation:
         # loops, so scalar-vs-vector parity holds at any epoch.
         self.epoch = epoch
         # execution backend for the client/world batch engines ("numpy" |
-        # "jax"); engine outputs are bit-identical either way (4th parity
-        # axis in core/scenarios.run_parity). The server-side engines get
-        # their backend via ProjectServer(engine_backend=...).
+        # "torch", the latter on ``device``); engine outputs are
+        # bit-identical either way (4th parity axis in
+        # core/scenarios.run_parity). The server-side engines get theirs via
+        # ProjectServer(engine_backend=..., engine_device=...).
         self.backend = backend
-        self.client_engine = BatchClientEngine(backend=backend)
-        self.world = HostArrays(backend=backend)
+        self.client_engine = BatchClientEngine(backend=backend, device=device)
+        self.world = HostArrays(backend=backend, device=device)
         self.ground_truth = ground_truth or (lambda job_id: float(job_id) * 1.5)
         # real-compute hook (grid runtime): executor(job, host) -> output
         self.executor = executor

@@ -87,9 +87,9 @@ def fuzzy_comparator(rtol: float = 1e-5, atol: float = 1e-8,
     # *pair*), so those comparators stay on the scalar path.
     if max_bad_fraction == 0.0:
         cmp.digest_batch = lambda outputs: _fuzzy_digest_batch(outputs, rtol, atol)  # type: ignore[attr-defined]
-        # tolerances, exposed so the jax validation backend can route
-        # homogeneous tensor payloads through the quorum_compare Pallas
-        # kernel with the same (rtol, atol) contract
+        # tolerances, exposed so the torch validation backend can route
+        # homogeneous tensor payloads through the quorum_compare kernel
+        # with the same (rtol, atol) contract
         cmp.fuzzy_params = (rtol, atol)  # type: ignore[attr-defined]
     return cmp
 

@@ -55,7 +55,8 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, TYPE_CHECKIN
 
 import numpy as np
 
-from .backend import resolve_backend
+from . import torch_backend
+from .backend import resolve_engine
 from .client import RunState
 from .types import ResourceType
 
@@ -98,9 +99,15 @@ class HostArrays:
 
     _Q0 = 8  # initial queue-matrix depth; doubled on demand
 
-    def __init__(self, backend: str = "numpy") -> None:
-        # NumPy only in the port (core/backend.py)
-        self.backend = resolve_backend(backend)
+    def __init__(self, backend: str = "numpy", device="cuda") -> None:
+        # "torch": the accrual/completion passes run against column mirrors
+        # resident on ``device`` (core.torch_backend.WorldDeviceMirror) kept
+        # current by the _touch dirty-range hooks below; bit-identical to
+        # the NumPy passes (4th parity axis)
+        self.backend, self.device = resolve_engine(backend, device)
+        self._mirror = (
+            torch_backend.WorldDeviceMirror(self.device) if self.backend == "torch" else None
+        )
         self.n = 0  # registered hosts (dense slots, never reused)
         self._cap = 0
         self.index: Dict[int, int] = {}  # host_id -> dense slot
@@ -226,6 +233,14 @@ class HostArrays:
             self.has[rt] = np.zeros(self._cap, dtype=bool)
             self.q_usage[rt] = np.zeros((self._q, self._cap), dtype=np.float64)
 
+    def _touch(self, i: int) -> None:
+        """Dirty-range hook (backend="torch"): dense slot ``i``'s mirrored
+        queue columns changed host-side; re-upload before the next device
+        pass. Host-array growth/compaction is caught separately by the
+        mirror's shape check, so only per-slot writers need to call this."""
+        if self._mirror is not None:
+            self._mirror.mark(i)
+
     # ------------------------------------------------------------------
     # registration / churn
     # ------------------------------------------------------------------
@@ -289,6 +304,7 @@ class HostArrays:
             for col in self.q_usage.values():
                 col[:cnt, i] = 0
             self.q_count[i] = 0
+            self._touch(i)
         self.alive[i] = False
         self.available[i] = False
         self.hr_id[i] = -1
@@ -326,6 +342,7 @@ class HostArrays:
     def set_accrued(self, host_id: int, instance_id: int, value: float) -> None:
         i = self.index[host_id]
         self.q_runtime[self.row_of[i][instance_id], i] = value
+        self._touch(i)
 
     def get_total(self, host_id: int, instance_id: int) -> float:
         i = self.index[host_id]
@@ -361,6 +378,7 @@ class HostArrays:
         self.queue_jobs[i].append(job)
         self.row_of[i][job.instance_id] = row
         self.q_count[i] = row + 1
+        self._touch(i)
         if self.project[i] is not None and job.project != self.project[i]:
             self.multi[i] = True
 
@@ -388,6 +406,7 @@ class HostArrays:
             j.instance_id: r for r, j in enumerate(self.queue_jobs[i])
         }
         self.q_count[i] = newc
+        self._touch(i)
 
     def sync_run_state(self, host_id: int) -> None:
         """Re-mirror run-state-dependent columns after a (re)schedule
@@ -400,6 +419,7 @@ class HostArrays:
             q_running[row, i] = j.state == _RUNNING
             q_slice[row, i] = j.slice_start
             q_chk[row, i] = j.checkpoint_time
+        self._touch(i)
 
     def mark_dirty(self, host_id: int) -> None:
         """Flag a host whose ``ClientJob`` objects were mutated outside the
@@ -426,6 +446,7 @@ class HostArrays:
         self.queue_jobs[i] = []
         self.row_of[i] = {}
         self.q_count[i] = 0
+        self._touch(i)  # covers the zeroing even when no jobs re-add below
         for j in jobs:
             self.add_job(host_id, j, totals.get(j.instance_id, 0.0))
         self.dirty.discard(host_id)
@@ -471,6 +492,7 @@ class HostArrays:
         rows = np.flatnonzero(self.q_running[:cnt, i])
         if rows.size == 0:
             return
+        self._touch(i)  # mutates q_runtime/q_frac/busy below
         client = self.clients[i]
         q_runtime = self.q_runtime
         q_total = self.q_total
@@ -545,29 +567,35 @@ class HostArrays:
         """The fused accrual pass over active dense slots ``sub``: returns
         (per-slot REC debit totals, touched mask). Backend-dispatched —
         this is the kernel the 1M-host bench times in isolation."""
-        K = int(self.q_count[sub].max())
-        cpu_u = self.q_usage[ResourceType.CPU]
-        debit = np.zeros(len(sub), dtype=np.float64)
-        touched = np.zeros(len(sub), dtype=bool)
-        for k in range(K):
-            m = self.q_running[k, sub]
-            if not m.any():
-                continue
-            s2 = sub[m]
-            d2 = dts[m]
-            tot = self.q_total[k, s2]
-            run = self.q_runtime[k, s2]
-            rem = tot - run
-            rem = np.where(rem < 0.0, 0.0, rem)
-            eff = np.where(d2 < rem, d2, rem)
-            run = run + eff
-            self.q_runtime[k, s2] = run
-            denom = np.where(tot > 1e-9, tot, 1e-9)
-            frac = run / denom
-            self.q_frac[k, s2] = np.where(frac > 1.0, 1.0, frac)
-            self.busy[s2] += eff * cpu_u[k, s2]
-            debit[m] += eff * self.q_weight[k, s2]
-            touched |= m
+        if self._mirror is not None:
+            # device accrual: same per-cell IEEE ops and k-sequential
+            # accumulation order as the loop below, the eff·usage and
+            # eff·weight products rounded before the fold (core.torch_backend)
+            debit, touched = self._mirror.advance(self, sub, dts)
+        else:
+            K = int(self.q_count[sub].max())
+            cpu_u = self.q_usage[ResourceType.CPU]
+            debit = np.zeros(len(sub), dtype=np.float64)
+            touched = np.zeros(len(sub), dtype=bool)
+            for k in range(K):
+                m = self.q_running[k, sub]
+                if not m.any():
+                    continue
+                s2 = sub[m]
+                d2 = dts[m]
+                tot = self.q_total[k, s2]
+                run = self.q_runtime[k, s2]
+                rem = tot - run
+                rem = np.where(rem < 0.0, 0.0, rem)
+                eff = np.where(d2 < rem, d2, rem)
+                run = run + eff
+                self.q_runtime[k, s2] = run
+                denom = np.where(tot > 1e-9, tot, 1e-9)
+                frac = run / denom
+                self.q_frac[k, s2] = np.where(frac > 1.0, 1.0, frac)
+                self.busy[s2] += eff * cpu_u[k, s2]
+                debit[m] += eff * self.q_weight[k, s2]
+                touched |= m
         return debit, touched
 
     # ------------------------------------------------------------------
@@ -600,10 +628,13 @@ class HostArrays:
         K = int(counts.max()) if len(idx) else 0
         if K == 0:
             return {h: np.zeros(0, dtype=np.int64) for h, _ in live}
-        sub = self.q_running[:K, idx] & (
-            self.q_runtime[:K, idx] >= self.q_total[:K, idx] - 1e-6
-        )
-        sub &= np.arange(K)[:, None] < counts[None, :]
+        if self._mirror is not None:
+            sub = self._mirror.completed_mask(self, idx, counts)[:K]
+        else:
+            sub = self.q_running[:K, idx] & (
+                self.q_runtime[:K, idx] >= self.q_total[:K, idx] - 1e-6
+            )
+            sub &= np.arange(K)[:, None] < counts[None, :]
         out: Dict[int, np.ndarray] = {}
         rows, cols = np.nonzero(sub.T)  # host-major
         split = np.searchsorted(rows, np.arange(len(idx) + 1))

@@ -11,6 +11,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    BatchClientEngine,
+    BatchDispatchEngine,
+    HostArrays,
+    ProjectServer,
+    ScenarioSpec,
+    run_parity,
+)
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.swiglu import ops as swiglu_ops  # noqa: E402
@@ -44,8 +52,10 @@ def test_imports_nothing_of_jax_or_repro():
     # every module of the package was walked: 69 with the SSM serving slice
     # (kernels.ssd_scan and its ops and ref, models.ssm, two configs), 75
     # with the MoE and MLA slice (models.moe, five configs), 78 with the
-    # frontends (models.frontends, two configs)
-    assert int(proc.stdout.split()[-1]) >= 78
+    # frontends (models.frontends, two configs), 83 with the engines
+    # (data.traces, configs.boinc_sim, core.coordinator, core.scenarios,
+    # core.torch_backend)
+    assert int(proc.stdout.split()[-1]) >= 83
 
 
 def test_entry_points_raise_without_card():
@@ -62,6 +72,30 @@ def test_entry_points_raise_without_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax({"w": params["final_norm"]["scale"].numpy()}, "cuda")
     BatchServer(cfg, params, device="cpu")  # asked for: runs
+
+
+def test_engines_raise_without_card():
+    # the torch engine backend runs on "cuda" unless "cpu" is asked for;
+    # the NumPy engines ignore the device
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the engines run on it")
+    server = ProjectServer(name="p")
+    for make in (lambda **kw: BatchDispatchEngine(server.store, server.feeder, backend="torch", **kw),
+                 lambda **kw: BatchClientEngine(backend="torch", **kw),
+                 lambda **kw: HostArrays(backend="torch", **kw),
+                 lambda **kw: ProjectServer(name="q", engine_backend="torch",
+                                            **{f"engine_{k}": v for k, v in kw.items()})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(device="cuda")
+        make(device="cpu")  # asked for: runs
+    assert BatchClientEngine(device="cuda").device is None  # NumPy: the device is ignored
+    spec = ScenarioSpec(name="tiny", n_hosts=2, n_jobs=2, horizon=3600.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_parity(spec)
+    full = run_parity(spec, device="cpu")
+    assert full.server.engine_backend == "numpy" and full.sim.backend == "numpy"
 
 
 def test_wrappers_take_no_plain_path_off_the_cpu():
