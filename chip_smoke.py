@@ -196,13 +196,23 @@ Phases, in order; the first failure ends the run with a non-zero exit:
     at their test sizes and ``adversarial_10k`` (10 000 hosts, 3000 jobs,
     a 500-host clique, 200 credit farmers, churn, epoch 60, half a
     virtual day), with both walls. (3) A ``quorum_compare`` row at the
-    digest's shape, (4096,) x 2 f32; then a 1000-host, 2000-job run whose
-    jobs return 4096-element f64 vectors (``executor``; corruptions add
-    one uniform draw in [1, 2) to every element, ``corruptor``; 5%
-    erroneous and 10% malicious hosts, no clique), the quorum_compare
-    counter zeroed before the torch run and non-zero after it, the run
-    identical to NumPy's and profiled (the kernel's share of the device
-    time).
+    digest's shape, (4096,) x 2 f32 (the pairwise kernel, which the
+    digests no longer call); then a 1000-host, 2000-job run whose jobs
+    return 4096-element f64 vectors (``executor``; corruptions add one
+    uniform draw in [1, 2) to every element, ``corruptor``; 5% erroneous
+    and 10% malicious hosts, no clique), both quorum counters zeroed
+    before the torch run: after it the pairwise ``launches`` must be 0 and
+    ``launches_pairs`` the number of digest panels (one a digest call),
+    the run identical to NumPy's with job states and profiled (digest
+    calls, rows a call, the pair kernels' busy time, the idle share, both
+    walls). (4) The pair-count kernel bit-equal to its plain version at
+    (2, 4096), at the payload run's largest digest, at twice that plus 3
+    rows (also as two panels, and the group codes of a two-panel
+    ``quorum_group_codes`` equal to one panel's) and at (n,
+    4097) one element into its buffer (unaligned rows), each in f32 and
+    bf16; 16 of its counts equal to the pairwise kernel's; its row
+    ``quorum_pair_counts`` timed at the payload run's largest digest, the
+    library time that of ``~isclose`` over the (n, n, d) broadcast.
 Every main path (phases 3, 5, 7, 9, 11, 13, 15, 16, 17-21, 24, 25) must
 launch no wide-D flash kernel. Phases 24 and 25 print their walls.
 
@@ -227,7 +237,8 @@ forward, ``launches_encoder`` from its encoder step), ``*_pixtral`` from
 phase 25's serving run (and ``launches_vlm_path``). ``quorum_compare``
 also carries ``launches_engines``, the payload run's launches (phase 26),
 which are the ``launches`` of the row ``quorum_compare_digest`` (the
-digest's shape).
+digest's shape): 0, since the digests go through the pair-count kernel,
+whose row ``quorum_pair_counts`` takes its launches from that run.
 Without a CUDA card, or without the repository's ``src/`` beside it, the
 script exits non-zero and prints no result.
 """
@@ -638,8 +649,9 @@ def engines_phase(dev, check, quorum_ops, quorum_compare_ref):
     """Phase 26: the torch engine backend on the card against the NumPy
     engines, bit for bit: each engine pass alone at fleet scale, whole
     scenario runs, and tensor payloads through the validation engine's
-    ``quorum_compare`` digests. Returns the digest row's record and the
-    kernel's launches in the payload run."""
+    digests (the pair-count kernel). Returns the pairwise kernel's record at
+    the digest's shape and its launches in the payload run (none), then the
+    pair-count kernel's record and its launches there."""
     import random
 
     import numpy as np
@@ -647,8 +659,10 @@ def engines_phase(dev, check, quorum_ops, quorum_compare_ref):
 
     from repro_torch import core
     from repro_torch.core import scenarios as scen
+    from repro_torch.core import torch_backend
     from repro_torch.core.batch_dispatch import BatchDispatchEngine
     from repro_torch.core.scheduler import ResourceRequest, ScheduleRequest
+    from repro_torch.kernels.quorum_compare.ref import quorum_pair_counts_ref
 
     CPU = core.ResourceType.CPU
     walls = {}
@@ -922,28 +936,136 @@ def engines_phase(dev, check, quorum_ops, quorum_compare_ref):
         sim.audit_validation()
         return scen.ScenarioResult(spec=spec, server=server, sim=sim, metrics=m, population=pop)
 
+    digests = []  # the rows of each digest call of the torch run
+    grouping = torch_backend.quorum_group_codes
+
+    def counted_grouping(mat, rtol, atol, device):
+        digests.append(mat.shape[0])
+        return grouping(mat, rtol, atol, device)
+
     a, sa = timed(lambda: payload_run())
-    quorum_ops.launches = 0
-    dev_us, wall_ms, b = cuda_profile(lambda: payload_run(backend="torch", device=dev))
-    launches = quorum_ops.launches
+    torch_backend.quorum_group_codes = counted_grouping
+    try:
+        quorum_ops.launches = quorum_ops.launches_pairs = 0
+        t = time.perf_counter()
+        dev_us, wall_ms, b = cuda_profile(lambda: payload_run(backend="torch", device=dev))
+        launches, pair_launches = quorum_ops.launches, quorum_ops.launches_pairs
+        log(f"[26] the profiler's own time after the torch payload run: "
+            f"{time.perf_counter() - t - wall_ms / 1e3:.1f} s")
+    finally:
+        torch_backend.quorum_group_codes = grouping
     scen.assert_results_identical(a, b, "torch digests on the card vs numpy", job_states=True)
-    if not launches:
-        raise AssertionError("the payload run launched no quorum_compare kernel")
+    panels = sum(-(-n // max(1, torch_backend.PANEL_ENTRIES // n)) for n in digests if n >= 2)
+    if launches:
+        raise AssertionError(f"the payload run launched the per-pair quorum_compare {launches} times")
+    if not pair_launches or pair_launches != panels:
+        raise AssertionError(f"the payload run launched the pair-count kernel {pair_launches} times, "
+                             f"its {len(digests)} digest calls make {panels} panels")
     busy = sum(dev_us.values()) / 1e3
-    quorum_busy = sum(v for k, v in dev_us.items() if "quorum" in k) / 1e3
+    pair_busy = sum(v for k, v in dev_us.items() if "quorum_pairs" in k) / 1e3
     walls["payload_s"] = (sa, wall_ms / 1e3)
     c = a.server.counts()
+    n_max = max(digests)
     log(f"[26] tensor payloads ({PAYLOAD_HOSTS} hosts, {PAYLOAD_JOBS} jobs of {PAYLOAD_LEN} f64, "
         f"error_prob 0.05, malicious 0.1): identical with job states; jobs_success "
-        f"{c['jobs_success']}, wrong_accepted {a.metrics.wrong_accepted}, quorum_compare launches "
-        f"{launches}; wall s numpy {sa:.2f}, torch (profiled) {wall_ms / 1e3:.2f}; device busy "
-        f"{busy:.3f} ms, of it quorum_compare {quorum_busy:.3f} ms "
-        f"({quorum_busy / busy if busy else float('nan'):.3f})")
+        f"{c['jobs_success']}, wrong_accepted {a.metrics.wrong_accepted}; digest calls "
+        f"{len(digests)}, rows a call mean {sum(digests) / len(digests):.2f} max {n_max}; "
+        f"quorum_compare launches {launches}, quorum_pair_counts launches {pair_launches}; wall s "
+        f"numpy {sa:.2f}, torch (profiled) {wall_ms / 1e3:.2f}; device busy {busy:.3f} ms, idle "
+        f"{1 - busy / wall_ms if dev_us else float('nan'):.4f}, of it the pair kernels "
+        f"{pair_busy:.3f} ms ({pair_busy / busy if busy else float('nan'):.4f})")
     for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]:
         log(f"    {us / 1e3:9.3f} ms  {key[:100]}")
+
     log(f"[26] step 3 wall {time.perf_counter() - t_step:.1f} s")
+
+    # ---- 4. the pair-count kernel against its plain version, bit for bit ----
+    t_step = time.perf_counter()
+    def payload_rows(n, d, dtype, offset=0):
+        """n rows of d: replicas of a few results, some within the digest
+        tolerance of each other, some corrupted, one NaN and one inf; with
+        ``offset``, a view that starts one element into its buffer."""
+        base = torch.randn(max(1, n // 3), d, generator=gen, device=dev, dtype=torch.float64)
+        pick = torch.randint(0, base.shape[0], (n,), generator=gen, device=dev)
+        x = base[pick] * (1 + 1e-7 * torch.randn(n, 1, generator=gen, device=dev,
+                                                 dtype=torch.float64))
+        x[1::4] += torch.rand(len(x[1::4]), 1, generator=gen, device=dev, dtype=torch.float64) + 1
+        x[n // 2, d // 3] = float("nan")
+        x[n - 1, d - 1] = float("inf")
+        flat = torch.zeros(n * d + 1, device=dev, dtype=dtype)
+        flat[offset:offset + n * d] = x.reshape(-1).to(dtype)
+        return flat[offset:offset + n * d].view(n, d)
+
+    def held(label, x, lo, hi):
+        got = quorum_ops.quorum_pair_counts(x, lo, hi, rtol=rtol_d, atol=atol_d)
+        want = quorum_pair_counts_ref(x, lo, hi, rtol_d, atol_d)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"quorum_pair_counts {label} [{lo}, {hi}): "
+                                 f"{int((got != want).sum())} counts differ from the plain version")
+        return got
+
+    cases = []
+    for dtype in (f32, torch.bfloat16):
+        for n, d, offset in ((2, PAYLOAD_LEN, 0), (n_max, PAYLOAD_LEN, 0), (2 * n_max + 3, PAYLOAD_LEN, 0),
+                             (n_max, PAYLOAD_LEN + 1, 1)):
+            x = payload_rows(n, d, dtype, offset)
+            label = f"({n}, {d}) {str(dtype)[6:]}" + (" one element into its buffer" if offset else "")
+            got = held(label, x, 0, n)
+            cases.append(label)
+            if n == 2 * n_max + 3:  # two panels, as a test-only panel constant makes them
+                held(label, x, 0, (n + 1) // 2)
+                held(label, x, (n + 1) // 2, n)
+                mat = x.double().cpu().numpy()
+                want = torch_backend.quorum_group_codes(mat, rtol_d, atol_d, dev)
+                old = torch_backend.PANEL_ENTRIES
+                torch_backend.PANEL_ENTRIES = n * ((n + 1) // 2)
+                try:
+                    codes = torch_backend.quorum_group_codes(mat, rtol_d, atol_d, dev)
+                finally:
+                    torch_backend.PANEL_ENTRIES = old
+                finite = ~np.isnan(mat).any(axis=1)  # NaN rows: fresh sentinels each call
+                if not np.array_equal(codes[finite], want[finite]):
+                    raise AssertionError(f"two-panel group codes differ from one panel's ({label})")
+            if dtype is f32 and d == PAYLOAD_LEN and n == n_max:
+                # a sample of pairs against the pairwise kernel
+                pick = torch.randint(1, n, (16,), generator=gen, device=dev).tolist()
+                for i in pick:
+                    r = int(torch.randint(0, i, (1,), generator=gen, device=dev))
+                    nb, _ = quorum_ops.quorum_compare(x[i], x[r], rtol=rtol_d, atol=atol_d)
+                    if int(nb) != int(got[i, r]):
+                        raise AssertionError(f"quorum_pair_counts [{i}, {r}] {int(got[i, r])} != "
+                                             f"quorum_compare's {int(nb)}")
+    log(f"[26] quorum_pair_counts bit-equal to its plain version at {cases}; 16 pairs equal to "
+        f"quorum_compare's counts; two panels give one panel's codes")
+    x = payload_rows(n_max, PAYLOAD_LEN, f32)
+
+    def pairs():
+        return quorum_ops.quorum_pair_counts(x, 0, n_max, rtol=rtol_d, atol=atol_d)
+
+    pair_rec = check(
+        "quorum_pair_counts", f"({n_max}, {PAYLOAD_LEN}) f32 pairs", f32, lambda x: pairs(),
+        lambda x: quorum_pair_counts_ref(x, 0, n_max, rtol_d, atol_d),
+        lambda x: torch.isclose(x[:, None], x[None], rtol=rtol_d, atol=atol_d).logical_not().sum(-1),
+        (x,), 0.0, n_max * PAYLOAD_LEN * 4 + 4 * n_max * n_max,
+        5 * PAYLOAD_LEN * n_max * (n_max - 1) / 2, PEAK_OPS["float32"])
+    # CUDA events around queued launches as well: a profile of this short
+    # two-kernel launch has been seen to lose records (a time under the
+    # bound, or a fraction of the events' time)
+    pair_rec["events_ms"] = queued_event_ms(pairs)
+    if "quorum_pairs_kernel<float, true>" not in pair_rec["kernels"] or \
+            pair_rec["ms"] < 0.5 * pair_rec["events_ms"]:
+        log(f"[26] quorum_pair_counts: the profile saw {pair_rec['kernels']} for "
+            f"{pair_rec['ms']:.6f} ms against {pair_rec['events_ms']:.6f} ms between CUDA events: "
+            f"it lost records, so the events' time stands")
+        pair_rec["ms"] = pair_rec["events_ms"]
+        pair_rec["kernels"] = ["quorum_pairs_kernel<float, true>", "quorum_pairs_sum_kernel",
+                               "(CUDA events)"]
+    log(f"[26] quorum_pair_counts {pair_rec['shape']}: {pair_rec['ms']:.6f} ms "
+        f"({pair_rec['events_ms']:.6f} ms between CUDA events around queued launches)")
+    log(f"[26] step 4 wall {time.perf_counter() - t_step:.1f} s")
     log(f"[26] walls {json.dumps(walls)}")
-    return rec, launches
+    return rec, launches, pair_rec, pair_launches
 
 
 def main() -> int:
@@ -1000,6 +1122,7 @@ def main() -> int:
         out["flash_attention_wide"] = flash_ops.launches_wide
         out["flash_attention_bwd_wide"] = flash_ops.launches_wide_bwd
         out["quorum_compare"] = quorum_ops.launches
+        out["quorum_pair_counts"] = quorum_ops.launches_pairs
         out["int8_quantize"] = int8_ops.launches_quantize
         out["int8_dequantize"] = int8_ops.launches_dequantize
         return out
@@ -1007,7 +1130,8 @@ def main() -> int:
     def zero_counts():
         for mod in (rms_ops, swiglu_ops, flash_ops):
             mod.launches = mod.launches_bwd = 0
-        quorum_ops.launches = ssd_ops.launches = ssd_ops.launches_bwd = 0
+        quorum_ops.launches = quorum_ops.launches_pairs = 0
+        ssd_ops.launches = ssd_ops.launches_bwd = 0
         flash_ops.launches_wide = flash_ops.launches_wide_bwd = 0
         int8_ops.launches_quantize = int8_ops.launches_dequantize = 0
 
@@ -2479,8 +2603,8 @@ def main() -> int:
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    results["quorum_compare_digest"], engine_launches = engines_phase(
-        dev, check, quorum_ops, quorum_compare_ref)
+    (results["quorum_compare_digest"], engine_launches, results["quorum_pair_counts"],
+     pair_launches) = engines_phase(dev, check, quorum_ops, quorum_compare_ref)
     log(f"[26] phase wall {time.perf_counter() - t_phase:.1f} s")
 
     # ---- result lines ------------------------------------------------------
@@ -2492,11 +2616,13 @@ def main() -> int:
         "swiglu": "src/repro/kernels/swiglu/kernel.py:12",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:30",
         "quorum_compare": "src/repro/kernels/quorum_compare/kernel.py:21",
+        "quorum_pair_counts": "src/repro/kernels/quorum_compare/kernel.py:21",
         "int8_quantize": "src/repro/kernels/int8_quant/kernel.py:19",
         "int8_dequantize": "src/repro/kernels/int8_quant/kernel.py:28",
         "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:26",
     }
-    sources = {"int8_quantize": "int8_quant", "int8_dequantize": "int8_quant"}
+    sources = {"int8_quantize": "int8_quant", "int8_dequantize": "int8_quant",
+               "quorum_pair_counts": "quorum_compare"}
 
     def kernel_of(name):
         return next(k for k in replaces if name.startswith(k))
@@ -2518,8 +2644,10 @@ def main() -> int:
                         if n.endswith("_hubert")},
                      **{n: pixtral_launches[n.replace("_pixtral", "")] for n in results
                         if n.endswith("_pixtral")},
-                     # the validation engine's digests of the tensor-payload run (phase 26)
-                     "quorum_compare_digest": engine_launches}
+                     # the validation engine's digests of the tensor-payload run (phase 26):
+                     # the pair-count kernel's, and the pairwise kernel's (none)
+                     "quorum_compare_digest": engine_launches,
+                     "quorum_pair_counts": pair_launches}
     kernels = []
     for name, rec in results.items():
         base, kernel = name.replace("_f32", ""), kernel_of(name)
@@ -2562,7 +2690,13 @@ def main() -> int:
             row["launches_engines"] = engine_launches
         if name == "quorum_compare_digest":
             row["launches_in"] = ("phase 26, the validation engine's digests of 4096-element "
-                                  "payloads on the torch engines")
+                                  "payloads on the torch engines (they go through "
+                                  "quorum_pair_counts)")
+        if name == "quorum_pair_counts":
+            row["kernel"] = rec["kernels"]  # the tiled kernel and the slices' sum, as timed
+            row["events_ms"] = rec["events_ms"]
+            row["launches_in"] = ("phase 26, the validation engine's digests of 4096-element "
+                                  "payloads on the torch engines, one launch a digest call")
         if name == "ssd_scan":
             row["launches_serve"] = mamba_launches[name]
             row["launches_serve_zamba2"] = zamba_launches[name]

@@ -43,7 +43,7 @@ resident on the device between passes and are updated in place.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -449,40 +449,54 @@ class WorldDeviceMirror:
 # ----------------------------------------------------------------------
 
 
+# the most verdicts one panel of a digest call holds on the card: 64 MiB of
+# int32 counts; a panel takes as many rows as fit beside all n columns
+PANEL_ENTRIES = 1 << 24
+
+
 def quorum_group_codes(mat: np.ndarray, rtol: float, atol: float,
                        device: torch.device) -> np.ndarray:
     """Group codes for a homogeneous (n, d) float payload matrix through the
-    ``quorum_compare`` kernel (its plain version on the CPU).
+    ``quorum_compare`` pair-count kernel (its plain version on the CPU).
 
     The matrix is cast to f32 on the device, as the reference's Pallas
     wrapper casts it. Greedy first-match grouping: row i joins the first
     group whose representative it agrees with (``n_bad == 0`` under the
-    comparator's tolerances), else it founds a new group. Under the digest
-    contract (replicas either agree well within tolerance or disagree far
-    outside it) this partition equals the scalar comparator's greedy
-    pairwise grouping. NaN-carrying rows match nothing (the kernel counts a
-    NaN as no disagreement) and get unique sentinels in row order, as the
-    reference's ``quorum_group_codes`` gives them."""
-    from ..kernels.quorum_compare.ops import quorum_compare
+    comparator's tolerances, the representative as ``b``), else it founds a
+    new group. Under the digest contract (replicas either agree well within
+    tolerance or disagree far outside it) this partition equals the scalar
+    comparator's greedy pairwise grouping. NaN-carrying rows match nothing
+    (the kernel counts a NaN as no disagreement) and get unique sentinels in
+    row order, as the reference's ``quorum_group_codes`` gives them.
+
+    Every earlier-row count of a panel of rows comes from one launch and
+    one copy to the host; the greedy then reads them there, so the codes are
+    those of comparing each row with each representative in turn."""
+    from ..kernels.quorum_compare.ops import quorum_pair_counts
     from .validator import _nan_sentinel
 
     rows = _up(mat, device).to(torch.float32)
     n = mat.shape[0]
     codes = np.zeros(n, dtype=np.int64)
-    reps: List[int] = []
+    reps = np.zeros(n, dtype=np.int64)  # representatives, in founding order
+    n_reps = 0
     nan_rows = np.isnan(mat).any(axis=1)
-    for i in range(n):
-        if nan_rows[i]:
-            codes[i] = _nan_sentinel()
-            continue
-        for g, r in enumerate(reps):
-            n_bad, _ = quorum_compare(rows[i], rows[r], rtol=rtol, atol=atol)
-            if int(n_bad) == 0:
+    step = max(1, PANEL_ENTRIES // max(n, 1))
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        agree = quorum_pair_counts(rows, lo, hi, rtol=rtol, atol=atol).cpu().numpy() == 0
+        for i in range(lo, hi):
+            if nan_rows[i]:
+                codes[i] = _nan_sentinel()
+                continue
+            hit = agree[i - lo, reps[:n_reps]]
+            g = int(hit.argmax()) if n_reps else 0
+            if n_reps and hit[g]:
                 codes[i] = g
-                break
-        else:
-            reps.append(i)
-            codes[i] = len(reps) - 1
+            else:
+                reps[n_reps] = i
+                codes[i] = n_reps
+                n_reps += 1
     return codes
 
 

@@ -30,7 +30,10 @@ from hypothesis import given, settings, strategies as st  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref  # noqa: E402
 from repro_torch.kernels.quorum_compare import ops as quorum_ops  # noqa: E402
-from repro_torch.kernels.quorum_compare.ref import quorum_compare_ref  # noqa: E402
+from repro_torch.kernels.quorum_compare.ref import (  # noqa: E402
+    quorum_compare_ref,
+    quorum_pair_counts_ref,
+)
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
@@ -328,7 +331,7 @@ class TestBackwardAgainstReference:
 class TestQuorumCompareAgainstReference:
     # each new length compiles the Pallas kernel anew: fewer examples than
     # tests/test_kernels.py's 15 keep this file's run short
-    @settings(max_examples=8, deadline=None, derandomize=True)
+    @settings(max_examples=8, deadline=None, derandomize=True, database=None)
     @given(
         n=st.integers(min_value=10, max_value=5000),
         bad_frac=st.floats(min_value=0.0, max_value=0.2),
@@ -596,6 +599,34 @@ class TestKernelsOnCard:
         # a misaligned view takes the scalar loop
         nb1, _ = quorum_ops.quorum_compare(a[1:], b[1:], rtol=1e-4, atol=1e-6)
         assert int(nb1) == int(quorum_compare_ref(a[1:], b[1:], 1e-4, 1e-6)[0])
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("n,d,lo,hi,offset", [
+        (2, 4096, 0, 2, 0), (300, 4096, 0, 300, 0), (300, 4096, 130, 300, 0),
+        (70, 4097, 0, 70, 0), (70, 4096, 0, 70, 1), (66, 100, 1, 66, 0), (5, 1, 0, 5, 0),
+        (3, 0, 0, 3, 0), (1, 8, 0, 1, 0)])
+    def test_quorum_pair_counts(self, cuda, n, d, lo, hi, offset, dtype):
+        # rows in groups, some agreeing near the tolerance, NaN and inf
+        # among them; offset starts the matrix one element into its buffer
+        rows = _normal(1, (n, d)).astype(np.float32)
+        rows[1::3] = rows[0::3][: len(rows[1::3])] * np.float32(1.00001)
+        rows[2::5] += np.float32(1e-7)
+        rows.reshape(-1)[::997] = np.nan
+        rows.reshape(-1)[5::1009] = np.inf
+        buf = torch.zeros(n * d + 1)
+        buf[offset:offset + n * d] = torch.from_numpy(rows.reshape(-1))
+        t = buf.to(cuda, TORCH_DT[dtype])[offset:offset + n * d].view(n, d)
+        launches, pairs = quorum_ops.launches, quorum_ops.launches_pairs
+        got = quorum_ops.quorum_pair_counts(t, lo, hi, rtol=1e-4, atol=1e-6)
+        torch.cuda.synchronize()
+        assert quorum_ops.launches == launches
+        assert quorum_ops.launches_pairs == pairs + (1 if hi >= 2 else 0)
+        want = quorum_pair_counts_ref(t, lo, hi, 1e-4, 1e-6)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        for i, r in ((hi - 1, 0), (hi - 1, hi - 2), ((lo + hi) // 2, lo // 2)):
+            if 0 <= r < i and d:
+                nb, _ = quorum_ops.quorum_compare(t[i], t[r], rtol=1e-4, atol=1e-6)
+                assert int(got[i - lo, r]) == int(nb)
 
     @pytest.mark.parametrize("b,s,h,p,g,n,with_init,dtype", SSD_CASES)
     def test_ssd_scan(self, cuda, b, s, h, p, g, n, with_init, dtype):
