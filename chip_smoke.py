@@ -213,8 +213,29 @@ Phases, in order; the first failure ends the run with a non-zero exit:
     bf16; 16 of its counts equal to the pairwise kernel's; its row
     ``quorum_pair_counts`` timed at the payload run's largest digest, the
     library time that of ``~isclose`` over the (n, n, d) broadcast.
+27. The scheduler service on the card: ``SchedulerService`` over
+    ``ProjectServer(engine_backend="torch", engine_device="cuda")`` on
+    ``benchmarks/bench_rpc.py``'s §5.1 deployment (2048 hosts over three
+    OSes, 20 000 jobs of min_quorum 1, a 384-slot feeder cache, four
+    shard-affine scheduler instances, vectorized dispatch), built in the
+    script, once on NumPy and once on torch from the same ids. (1) 2048
+    WORK frames, one per host, pipelined over one connection a wave (1024
+    frames) at a time, coalesced and per request, with no refill between
+    waves: the reply frames equal, byte for byte and in order, the NumPy
+    project's sequential ``rpc`` calls encoded with ``reply_to_wire``.
+    (2) ``run_load`` with 10 000 clients over 64 connections (bench_rpc's
+    treatment traffic) on torch, then again under torch.profiler (device
+    busy time, idle share), then on NumPy: every request answered, no
+    error, jobs received, no instance dispatched twice; RPC/s, p50/p95/p99
+    latency, waves and per-shard utilization. (3) PING, STATS, a malformed
+    and an over-long frame on a raw socket: the reference's reply codes,
+    the connection dropped after ``too-long``. (4) A ``done=`` report for an
+    instance dispatched in (1): the reply and the instance equal the NumPy
+    project's fed the same frame. Every kernel counter is zeroed before (1)
+    and must read 0 after (4): the service path launches no kernel of the
+    port. The phase prints its wall against a 90 s budget.
 Every main path (phases 3, 5, 7, 9, 11, 13, 15, 16, 17-21, 24, 25) must
-launch no wide-D flash kernel. Phases 24 and 25 print their walls.
+launch no wide-D flash kernel. Phases 24-27 print their walls.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
 numbers of this run (``launches``: the counts of the grid training run
@@ -1066,6 +1087,254 @@ def engines_phase(dev, check, quorum_ops, quorum_compare_ref):
     log(f"[26] step 4 wall {time.perf_counter() - t_step:.1f} s")
     log(f"[26] walls {json.dumps(walls)}")
     return rec, launches, pair_rec, pair_launches
+
+
+# ---- phase 27: the scheduler service on the card ------------------------------
+# the §5.1 deployment of benchmarks/bench_rpc.py: one min_quorum=1 app over
+# three OSes, a pre-filled 384-slot feeder cache, four shard-affine scheduler
+# instances with vectorized dispatch, 2048 hosts and 20 000 jobs
+SVC_CACHE = 384
+SVC_HOSTS = 2048
+SVC_JOBS = 20_000
+SVC_SHARDS = 4
+SVC_CLIENTS = 10_000  # bench_rpc's treatment traffic: 10 000 clients over 64 connections
+SVC_CONNS = 64
+SVC_WINDOW = 1024  # frames written at once on the exact run's connection: bench_rpc's max_batch
+SVC_BUDGET_S = 90.0
+SVC_TIMEOUT_S = 120.0  # the bound of every asyncio run
+SVC_OSES = ("windows", "mac", "linux")
+
+
+def service_project(core, **engine):
+    """bench_rpc's project (``benchmarks/bench_rpc.py``'s ``_make_server`` at
+    four shards with vectorized dispatch), on the engines ``engine`` names;
+    ids are reset first, so two builds give the same ids."""
+    core.reset_ids()
+    server = core.ProjectServer(name="bench_rpc", purge_delay=1e18, cache_size=SVC_CACHE,
+                                n_scheduler_instances=SVC_SHARDS, vector_dispatch=True, **engine)
+    app = core.App(name="work", min_quorum=1, init_ninstances=1)
+    for osn in SVC_OSES:
+        app.add_version(core.AppVersion(id=core.next_id("appver"), app_name="work",
+                                        platform=core.Platform(osn, "x86_64"), version_num=1,
+                                        plan_class=core.default_cpu_plan_class()))
+    server.add_app(app)
+    for _ in range(SVC_JOBS):
+        server.submit_job(core.Job(id=core.next_id("job"), app_name="work", est_flop_count=1e12), 0.0)
+    CPU = core.ResourceType.CPU
+    for i in range(SVC_HOSTS):
+        server.add_host(core.Host(id=i + 1, platforms=(core.Platform(SVC_OSES[i % 3], "x86_64"),),
+                                  resources={CPU: core.ProcessingResource(CPU, 8, 2e10)},
+                                  volunteer_id=i + 1))
+    server.tick(0.0)
+    return server
+
+
+def service_phase(dev, counts, zero_counts, smi):
+    """Phase 27: ``SchedulerService`` over the torch engines on the card.
+    (1) 2048 WORK frames pipelined on one connection (a wave at a time),
+    coalesced and per request, byte for byte against the NumPy project's sequential ``rpc``
+    calls; (2) bench_rpc's 10 000-client load, on torch (unprofiled, then
+    profiled for busy time and idle share) and on NumPy; (3) PING, STATS, a
+    malformed and an over-long frame on a raw socket; (4) a ``done=`` report
+    for an instance dispatched in (1), against the NumPy project fed the same
+    frame. No kernel of the port may launch."""
+    import asyncio
+
+    from repro_torch import core
+    from repro_torch import service as svc
+
+    t_phase = time.perf_counter()
+    torch_engines = {"engine_backend": "torch", "engine_device": dev}
+    rec = {"deployment": {"hosts": SVC_HOSTS, "jobs": SVC_JOBS, "cache": SVC_CACHE,
+                          "shards": SVC_SHARDS, "vector_dispatch": True}}
+
+    def bounded(coro):
+        return asyncio.run(asyncio.wait_for(coro, timeout=SVC_TIMEOUT_S))
+
+    # ---- 1. exact: one connection, 2048 pipelined frames --------------------
+    CPU = core.ResourceType.CPU
+    frames = [svc.encode_request(svc.WorkRequest(seq=i + 1, request=core.ScheduleRequest(
+        host_id=i + 1, requests={CPU: core.ResourceRequest(req_runtime=1.0 + 97.0 * (i % 3))},
+        usable_disk=1e12))) for i in range(SVC_HOSTS)]
+    t = time.perf_counter()
+    ref = service_project(core)
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = [svc.encode_reply(svc.reply_to_wire(i + 1, ref.rpc(svc.decode_request(f).request, 0.0)))
+            for i, f in enumerate(frames)]
+    seq_s = time.perf_counter() - t
+    offered = [len(svc.decode_reply(w).jobs) for w in want]
+    log(f"[27] NumPy project built in {build_s:.2f} s; {len(frames)} sequential rpc calls "
+        f"{seq_s:.3f} s: {sum(offered)} jobs offered to {sum(1 for n in offered if n)} hosts")
+
+    async def pipelined(project, coalesce):
+        # refill_every above the frame count: no feeder refill between waves.
+        # The frames go out a wave (max_batch frames) at a time, each window
+        # in one write and its replies read before the next: on gVisor's
+        # user-space loopback TCP one write of all 2048 frames stalls the
+        # last wave's replies for ~46 s, on the NumPy engines as on torch
+        service = svc.SchedulerService(project, coalesce=coalesce, max_batch=SVC_WINDOW,
+                                       refill_every=len(frames) + 1)
+        await service.start()
+        try:
+            reader, writer = await asyncio.open_connection("127.0.0.1", service.port)
+            t0 = time.perf_counter()
+            got = []
+            for k in range(0, len(frames), SVC_WINDOW):
+                window = frames[k:k + SVC_WINDOW]
+                writer.write(("\n".join(window) + "\n").encode())
+                await writer.drain()
+                got += [(await reader.readline()).decode().rstrip("\n") for _ in window]
+            wall = time.perf_counter() - t0
+            writer.close()
+        finally:
+            await service.stop()
+        return got, service.stats(), wall
+
+    zero_counts()
+    exact = {}
+    projects = {}
+    for coalesce in (True, False):
+        label = "coalesced" if coalesce else "per_request"
+        projects[label] = service_project(core, **torch_engines)
+        got, stats, wall = bounded(pipelined(projects[label], coalesce))
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        if len(got) != len(want) or bad:
+            raise AssertionError(f"[27] {label}: {len(bad)} of {len(want)} reply frames differ from "
+                                 f"the NumPy project's sequential rpc, first at frame {bad[:1]}: "
+                                 f"{got[bad[0]]!r} != {want[bad[0]]!r}" if bad else
+                                 f"[27] {label}: {len(got)} replies for {len(want)} frames")
+        exact[label] = {"wall_s": wall, "waves": stats["waves"], "max_wave": stats["max_wave"]}
+        log(f"[27] exact, {label}: {len(frames)} reply frames on the torch engines equal the NumPy "
+            f"project's sequential rpc byte for byte; {wall:.3f} s, {stats['waves']} waves "
+            f"(max {stats['max_wave']})")
+    rec["exact"] = {**exact, "frames": len(frames), "jobs_offered": sum(offered),
+                    "numpy_sequential_s": seq_s}
+
+    # ---- 3. inline frames on a raw socket ----------------------------------
+    async def raw_frames(project):
+        service = svc.SchedulerService(project)
+        await service.start()
+        try:
+            reader, writer = await asyncio.open_connection("127.0.0.1", service.port)
+            writer.write(b"PING 5\nSTATS 6\nthis is not a frame\n")
+            writer.write(b"W" * (svc.MAX_LINE + 1) + b"\n")  # one byte over the limit
+            await writer.drain()
+            lines = [await reader.readline() for _ in range(5)]
+            writer.close()
+        finally:
+            await service.stop()
+        return lines
+
+    lines = bounded(raw_frames(projects["coalesced"]))
+    replies = [svc.decode_reply(line.decode().rstrip("\n")) for line in lines[:4]]
+    # the reference service's answers (tests/test_service.py): PONG, STATS,
+    # ERR bad-int, ERR too-long, then the connection dropped
+    pong, stats_rep, err, too_long = replies
+    if not (pong == svc.PongReply(seq=5) and isinstance(stats_rep, svc.StatsReply)
+            and stats_rep.seq == 6 and stats_rep.values.get("errors") == 0.0
+            and isinstance(err, svc.ErrorReply) and err.code == "bad-int"
+            and isinstance(too_long, svc.ErrorReply) and too_long.code == "too-long"
+            and lines[4] == b""):
+        raise AssertionError(f"[27] raw frames answered {lines[:4]!r}, then {lines[4][:80]!r}")
+    log(f"[27] raw socket: PING -> PONG, STATS -> {len(stats_rep.values)} values, a malformed frame "
+        f"-> ERR bad-int, {svc.MAX_LINE + 1} bytes -> ERR too-long and the connection dropped")
+
+    # ---- 4. a completion report against the NumPy project ------------------
+    first = next(i for i, n in enumerate(offered) if n)
+    inst_id = svc.decode_reply(want[first]).jobs[0].instance_id
+    done = (f"WORK {len(frames) + 1} host={first + 1} disk=1e+15 cpu=3000.0:1.0:0.0 "
+            f"done={inst_id}:success:120.0:1e+12:0")
+
+    async def report_done(project):
+        service = svc.SchedulerService(project)
+        await service.start()
+        try:
+            reader, writer = await asyncio.open_connection("127.0.0.1", service.port)
+            writer.write((done + "\n").encode())
+            await writer.drain()
+            line = (await reader.readline()).decode().rstrip("\n")
+            writer.close()
+        finally:
+            await service.stop()
+        return line
+
+    got_done = bounded(report_done(projects["coalesced"]))
+    want_done = svc.encode_reply(svc.reply_to_wire(len(frames) + 1,
+                                                   ref.rpc(svc.decode_request(done).request, 0.0)))
+
+    def instance_row(project):
+        i = project.store.instances[inst_id]
+        return (i.outcome.value, i.state.value, i.validate_state.value, i.is_outstanding(),
+                project.store.jobs[i.job_id].transition_flag)
+
+    if got_done != want_done or instance_row(projects["coalesced"]) != instance_row(ref):
+        raise AssertionError(f"[27] done= report: torch {got_done!r} {instance_row(projects['coalesced'])}"
+                             f", NumPy {want_done!r} {instance_row(ref)}")
+    if instance_row(ref)[0] != "success" or instance_row(ref)[3]:
+        raise AssertionError(f"[27] the reported instance is {instance_row(ref)}")
+    log(f"[27] done= report for instance {inst_id}: the reply and the instance "
+        f"{instance_row(ref)[:3]} equal the NumPy project's")
+    del projects, ref
+    gc.collect()
+
+    # ---- 2. the 10 000-client load -----------------------------------------
+    async def load(project):
+        service = svc.SchedulerService(project, coalesce=True, max_batch=SVC_WINDOW)
+        await service.start()
+        try:
+            report = await svc.run_load("127.0.0.1", service.port, n_clients=SVC_CLIENTS,
+                                        n_conns=SVC_CONNS)
+        finally:
+            await service.stop()
+        return report, service.stats()
+
+    def load_row(label, project, profile=False):
+        if profile:
+            dev_us, wall_ms, (report, stats) = cuda_profile(lambda: bounded(load(project)))
+        else:
+            report, stats = bounded(load(project))
+        sent = [i for i in project.store.instances.values()
+                if i.state == core.InstanceState.IN_PROGRESS]
+        if not (report.replies == report.requests == SVC_CLIENTS and report.errors == 0
+                and report.jobs_received > 0 and stats["requests"] == SVC_CLIENTS
+                and len(sent) == stats["dispatched"] == report.jobs_received):
+            raise AssertionError(f"[27] load {label}: {report}, stats {stats}, {len(sent)} instances sent")
+        row = {k: getattr(report, k) for k in ("requests", "replies", "errors", "jobs_received",
+                                                 "wall_s", "rpcs_per_s", "p50_ms", "p95_ms", "p99_ms")}
+        row.update(waves=stats["waves"], max_wave=stats["max_wave"],
+                   shards=[{k: r[k] for k in ("shard", "requests", "dispatched", "owned_slots",
+                                               "migrations_in")} for r in stats["shards"]])
+        if profile:
+            busy_ms = sum(dev_us.values()) / 1e3 if dev_us else None
+            row.update(profiled_wall_ms=wall_ms, busy_ms=busy_ms,
+                       idle_share=max(0.0, 1 - busy_ms / wall_ms) if busy_ms is not None else None,
+                       kernels=len(dev_us))
+        log(f"[27] load {label}: {SVC_CLIENTS} clients over {SVC_CONNS} connections, "
+            f"{report.rpcs_per_s:.1f} RPC/s, p50/p95/p99 {report.p50_ms:.2f}/{report.p95_ms:.2f}/"
+            f"{report.p99_ms:.2f} ms, {report.jobs_received} jobs, {stats['waves']} waves "
+            f"(max {stats['max_wave']}), shards {[(r['requests'], r['dispatched']) for r in stats['shards']]}"
+            + (f"; profiled: busy {row['busy_ms']} ms of {wall_ms:.1f} ms, idle share "
+               f"{row['idle_share']}" if profile else ""))
+        return row
+
+    rec["load_torch"] = load_row("torch", service_project(core, **torch_engines))
+    gc.collect()
+    rec["load_torch_profiled"] = load_row("torch, profiled", service_project(core, **torch_engines),
+                                          profile=True)
+    gc.collect()
+    rec["load_numpy"] = load_row("NumPy", service_project(core))
+    gc.collect()
+
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"[27] the service run launched the port's kernels: {launched}")
+    rec["launches"] = 0
+    rec["wall_s"] = time.perf_counter() - t_phase
+    rec["card"] = smi
+    log(f"[27] no kernel of the port launched; phase wall {rec['wall_s']:.1f} s of a "
+        f"{SVC_BUDGET_S:.0f} s budget ({'within' if rec['wall_s'] <= SVC_BUDGET_S else 'OVER'}) on {smi}")
+    log(f"[27] service {json.dumps(rec)}")
 
 
 def main() -> int:
@@ -2606,6 +2875,11 @@ def main() -> int:
     (results["quorum_compare_digest"], engine_launches, results["quorum_pair_counts"],
      pair_launches) = engines_phase(dev, check, quorum_ops, quorum_compare_ref)
     log(f"[26] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 27. the scheduler service on the card -----------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    service_phase(dev, counts, zero_counts, smi)
 
     # ---- result lines ------------------------------------------------------
     # each row's TPU kernel and CUDA source, from the kernel its name starts

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch``, nor ``chip_smoke.py``,
 imports JAX or the reference package, and no entry point runs on the CPU
 unless asked to."""
+import asyncio
 import os
 import subprocess
 import sys
@@ -24,6 +25,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.swiglu import ops as swiglu_ops  # noqa: E402
 from repro_torch.models import init_cache, init_params, model_spec, params_from_jax  # noqa: E402
 from repro_torch.runtime import BatchServer  # noqa: E402
+from repro_torch.service import SchedulerService  # noqa: E402
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
@@ -54,8 +56,11 @@ def test_imports_nothing_of_jax_or_repro():
     # with the MoE and MLA slice (models.moe, five configs), 78 with the
     # frontends (models.frontends, two configs), 83 with the engines
     # (data.traces, configs.boinc_sim, core.coordinator, core.scenarios,
-    # core.torch_backend)
-    assert int(proc.stdout.split()[-1]) >= 83
+    # core.torch_backend), 98 with the service and the lint (service: the
+    # package, protocol, server, loadgen; analysis: the package, __main__,
+    # astutil, config, engine, findings, floatops, frozen, observers, purge,
+    # rng)
+    assert int(proc.stdout.split()[-1]) >= 98
 
 
 def test_entry_points_raise_without_card():
@@ -96,6 +101,30 @@ def test_engines_raise_without_card():
         run_parity(spec)
     full = run_parity(spec, device="cpu")
     assert full.server.engine_backend == "numpy" and full.sim.backend == "numpy"
+
+
+def test_service_over_torch_engines_raises_without_card():
+    # the service takes the project it is given: over the torch engines the
+    # project wants the card unless "cpu" is asked for
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the engines run on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SchedulerService(ProjectServer(name="s", engine_backend="torch"))
+    svc = SchedulerService(ProjectServer(name="s", engine_backend="torch", engine_device="cpu"))
+
+    async def ping():
+        await svc.start()
+        try:
+            reader, writer = await asyncio.open_connection("127.0.0.1", svc.port)
+            writer.write(b"PING 3\n")
+            await writer.drain()
+            line = await reader.readline()
+            writer.close()
+        finally:
+            await svc.stop()
+        return line
+
+    assert asyncio.run(asyncio.wait_for(ping(), timeout=30)) == b"PONG 3\n"  # asked for: runs
 
 
 def test_wrappers_take_no_plain_path_off_the_cpu():
