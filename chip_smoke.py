@@ -193,19 +193,19 @@ Phases, in order; the first failure ends the run with a non-zero exit:
     (2) Whole ``run_spec`` runs, numpy against torch, identical by
     ``assert_results_identical(..., job_states=True)``:
     ``clique_half_fleet_defended``, ``blackout_half`` and ``cpu_gpu_mix``
-    at their test sizes and ``adversarial_10k`` (10 000 hosts, 3000 jobs,
-    a 500-host clique, 200 credit farmers, churn, epoch 60, half a
-    virtual day), with both walls. (3) A ``quorum_compare`` row at the
-    digest's shape, (4096,) x 2 f32 (the pairwise kernel, which the
+    at their test sizes and ``adversarial_10k`` (3000 jobs, a 500-host
+    clique, 200 credit farmers, churn, epoch 60, half a virtual day; cut to
+    5000 hosts, half its fleet), with both walls. (3) A
+    ``quorum_compare`` row at the digest's shape, (4096,) x 2 f32 (the pairwise kernel, which the
     digests no longer call); then a 1000-host, 2000-job run whose jobs
     return 4096-element f64 vectors (``executor``; corruptions add one
     uniform draw in [1, 2) to every element, ``corruptor``; 5% erroneous
     and 10% malicious hosts, no clique), both quorum counters zeroed
     before the torch run: after it the pairwise ``launches`` must be 0 and
     ``launches_pairs`` the number of digest panels (one a digest call),
-    the run identical to NumPy's with job states and profiled (digest
-    calls, rows a call, the pair kernels' busy time, the idle share, both
-    walls). (4) The pair-count kernel bit-equal to its plain version at
+    the run identical to NumPy's with job states (digest calls, rows a
+    call, both walls; not profiled: a profile of its million launches
+    costs some 45 s of the script's time limit). (4) The pair-count kernel bit-equal to its plain version at
     (2, 4096), at the payload run's largest digest, at twice that plus 3
     rows (also as two panels, and the group codes of a two-panel
     ``quorum_group_codes`` equal to one panel's) and at (n,
@@ -234,8 +234,28 @@ Phases, in order; the first failure ends the run with a non-zero exit:
     project's fed the same frame. Every kernel counter is zeroed before (1)
     and must read 0 after (4): the service path launches no kernel of the
     port. The phase prints its wall against a 90 s budget.
+28. The dry run and the roofline on the card's machine (a 120 s budget,
+    its wall printed): ``python -m repro_torch.launch.dryrun --all`` in a
+    subprocess (6 processes) lowers every (arch x shape) cell at full width
+    on the meta device; each must be ``ok`` or ``skipped`` exactly where
+    ``cell_supported`` says, and the roofline table is printed with
+    ``fits``. Then qwen3-0.6b train (2 x 2048), hubert-xlarge prefill (the
+    encoder, 4 x 1500 frames), mamba2-130m train (2 x 2048) and qwen3-0.6b
+    decode (4 sequences, a 1024 context), reduced ``ShapeConfig``s, run
+    through ``build_step(..., single_device_mesh())`` on the card in bf16
+    from seeded random weights: ``count_costs`` over the real step must
+    give the meta run's FLOPs and bytes exactly (else the op census of both
+    is printed where they differ), and the launch counters must move as the
+    counted kernel calls (flash forward and backward, rmsnorm, swiglu and
+    ssd_scan forward and backward each launched by some cell); each cell's
+    busy time and idle share (torch.profiler) beside the roofline's step
+    time, MFU (model FLOPs over 989.4 TFLOP/s) over the busy time and over
+    the wall, and the peak memory above the arguments against the
+    predicted temp bytes. Last, ``perf_iter`` on qwen3-0.6b's train cell
+    (2 x 2048) under remat "nothing" and "dots": more FLOPs and less temp
+    for "nothing", printed beside phase 23's measured peaks.
 Every main path (phases 3, 5, 7, 9, 11, 13, 15, 16, 17-21, 24, 25) must
-launch no wide-D flash kernel. Phases 24-27 print their walls.
+launch no wide-D flash kernel. Phases 24-28 print their walls.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
 numbers of this run (``launches``: the counts of the grid training run
@@ -909,7 +929,10 @@ def engines_phase(dev, check, quorum_ops, quorum_compare_ref):
                            horizon=3 * DAY), 0.0),
         (scen.ScenarioSpec(name="cpu_gpu_mix", gpu=True, gpu_fraction=0.5, n_jobs=80,
                            est_hours=0.4), 0.0),
-        (scen.ScenarioSpec(name="adversarial_10k", seed=12, n_hosts=10_000, n_jobs=3000,
+        # adversarial_10k at its jobs, horizon and adversaries on half its
+        # fleet: its time goes with its RPCs (~10 a host), and the script
+        # has a time limit; step 1 holds every pass at 10 000 hosts
+        (scen.ScenarioSpec(name="adversarial_10k", seed=12, n_hosts=5000, n_jobs=3000,
                            horizon=0.5 * DAY, est_hours=0.05, clique=scen.Clique(size=500),
                            farm=scen.CreditFarm(count=200, factor=8.0),
                            churn_rate=1.0 / (30 * DAY), availability=0.9), 60.0),
@@ -968,11 +991,8 @@ def engines_phase(dev, check, quorum_ops, quorum_compare_ref):
     torch_backend.quorum_group_codes = counted_grouping
     try:
         quorum_ops.launches = quorum_ops.launches_pairs = 0
-        t = time.perf_counter()
-        dev_us, wall_ms, b = cuda_profile(lambda: payload_run(backend="torch", device=dev))
+        b, sb = timed(lambda: payload_run(backend="torch", device=dev))
         launches, pair_launches = quorum_ops.launches, quorum_ops.launches_pairs
-        log(f"[26] the profiler's own time after the torch payload run: "
-            f"{time.perf_counter() - t - wall_ms / 1e3:.1f} s")
     finally:
         torch_backend.quorum_group_codes = grouping
     scen.assert_results_identical(a, b, "torch digests on the card vs numpy", job_states=True)
@@ -982,9 +1002,7 @@ def engines_phase(dev, check, quorum_ops, quorum_compare_ref):
     if not pair_launches or pair_launches != panels:
         raise AssertionError(f"the payload run launched the pair-count kernel {pair_launches} times, "
                              f"its {len(digests)} digest calls make {panels} panels")
-    busy = sum(dev_us.values()) / 1e3
-    pair_busy = sum(v for k, v in dev_us.items() if "quorum_pairs" in k) / 1e3
-    walls["payload_s"] = (sa, wall_ms / 1e3)
+    walls["payload_s"] = (sa, sb)
     c = a.server.counts()
     n_max = max(digests)
     log(f"[26] tensor payloads ({PAYLOAD_HOSTS} hosts, {PAYLOAD_JOBS} jobs of {PAYLOAD_LEN} f64, "
@@ -992,11 +1010,7 @@ def engines_phase(dev, check, quorum_ops, quorum_compare_ref):
         f"{c['jobs_success']}, wrong_accepted {a.metrics.wrong_accepted}; digest calls "
         f"{len(digests)}, rows a call mean {sum(digests) / len(digests):.2f} max {n_max}; "
         f"quorum_compare launches {launches}, quorum_pair_counts launches {pair_launches}; wall s "
-        f"numpy {sa:.2f}, torch (profiled) {wall_ms / 1e3:.2f}; device busy {busy:.3f} ms, idle "
-        f"{1 - busy / wall_ms if dev_us else float('nan'):.4f}, of it the pair kernels "
-        f"{pair_busy:.3f} ms ({pair_busy / busy if busy else float('nan'):.4f})")
-    for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]:
-        log(f"    {us / 1e3:9.3f} ms  {key[:100]}")
+        f"numpy {sa:.2f}, torch {sb:.2f}")
 
     log(f"[26] step 3 wall {time.perf_counter() - t_step:.1f} s")
 
@@ -1335,6 +1349,210 @@ def service_phase(dev, counts, zero_counts, smi):
     log(f"[27] no kernel of the port launched; phase wall {rec['wall_s']:.1f} s of a "
         f"{SVC_BUDGET_S:.0f} s budget ({'within' if rec['wall_s'] <= SVC_BUDGET_S else 'OVER'}) on {smi}")
     log(f"[27] service {json.dumps(rec)}")
+
+
+# ---- phase 28: the dry run and the roofline, held against real steps ---------
+DRYRUN_BUDGET_S = 120.0
+DRYRUN_JOBS = 6  # cells the sweep lowers at once, each in its own process (8 cores)
+DRYRUN_TIMEOUT_S = 400.0  # the sweep's subprocess is killed past this
+# the cells run for real on the card: reduced ShapeConfigs of full-width archs
+# (arch, name, seq_len, global_batch, kind)
+DRYRUN_CHECKS = (
+    ("qwen3-0.6b", "train_2x2048", 2048, 2, "train"),  # the grid job's shape
+    ("hubert-xlarge", "prefill_4x1500", 1500, 4, "prefill"),  # the encoder, 4 clips
+    ("mamba2-130m", "train_2x2048", 2048, 2, "train"),
+    ("qwen3-0.6b", "decode_4x1024", 1024, 4, "decode"),
+)
+# every one of these must launch in some check cell
+DRYRUN_MUST_LAUNCH = ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd", "swiglu",
+                      "swiglu_bwd", "ssd_scan", "ssd_scan_bwd")
+
+
+def dryrun_phase(dev, counts, zero_counts, smi, remat_peaks=None):
+    """Phase 28: (1) ``python -m repro_torch.launch.dryrun --all`` in a
+    subprocess: every (arch x shape) cell at full width on the meta device,
+    each ``ok`` or ``skipped`` exactly where ``cell_supported`` says, and the
+    roofline table with ``fits``; (2) each of ``DRYRUN_CHECKS`` through
+    ``build_step(..., single_device_mesh())`` on the card in bf16 from
+    seeded random weights: ``count_costs`` over the real step must give the
+    meta run's FLOPs and bytes exactly and its kernel calls as the launch
+    counters moved; the step's peak memory above its arguments against the
+    predicted ``temp_size_in_bytes``; its busy time and idle share
+    (torch.profiler) beside the roofline's step time, and MFU over the busy
+    time and over the wall; (3) ``perf_iter`` on qwen3-0.6b's train cell
+    under remat "nothing" and "dots": FLOPs and temp bytes beside phase
+    23's measured peaks. Returns the phase's record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.hlo_analysis import op_census
+    from repro_torch.distributed.hlo_costs import count_costs
+    from repro_torch.distributed.roofline import PEAK_FLOPS_BF16, RooflineTerms
+    from repro_torch.launch.mesh import mesh_name, single_device_mesh
+    from repro_torch.launch.perf_iter import run_iteration
+    from repro_torch.launch.roofline_table import render_table
+    from repro_torch.models import cell_supported, get_shape, init_cache, init_params, model_spec
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.adamw import init_state
+    from repro_torch.runtime.step_builder import build_step, model_flops_for_cell
+
+    t_phase = time.perf_counter()
+    rec = {"card": smi}
+    # ---- 1. the sweep over every cell, at full width on the meta device -----
+    src = str(Path(__file__).resolve().parent / "src")
+    out = Path(tempfile.mkdtemp(prefix="dryrun_")) / "dryrun.jsonl"
+    env = {**os.environ, "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--jobs",
+                           str(DRYRUN_JOBS), "--json", str(out)], capture_output=True, text=True,
+                          env=env, timeout=DRYRUN_TIMEOUT_S)
+    sweep_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[28] the dry run exited {proc.returncode}: {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-2000:]}")
+    records = [json.loads(line) for line in out.read_text().splitlines()]
+    shutil.rmtree(out.parent, ignore_errors=True)
+    for r in records:
+        supported, why = cell_supported(get_config(r["arch"]), get_shape(r["shape"]))
+        if r["status"] != ("ok" if supported else "skipped"):
+            raise AssertionError(f"[28] {r['arch']} x {r['shape']}: {r['status']}, but cell_supported "
+                                 f"says {supported} ({why})")
+    n_ok = sum(r["status"] == "ok" for r in records)
+    log(f"[28] dry run: {len(records)} cells, {n_ok} ok and {len(records) - n_ok} skipped as "
+        f"cell_supported says, {sweep_s:.1f} s in {DRYRUN_JOBS} processes (meta runs "
+        f"{sum(r.get('meta_s', 0) for r in records):.1f} s in all)")
+    for line in render_table(records, fits=True).splitlines():
+        log(f"[28] {line}")
+    rec["sweep"] = {"cells": len(records), "ok": n_ok, "wall_s": sweep_s,
+                    "fit": [f"{r['arch']} {r['shape']}" for r in records if r.get("fits")]}
+
+    # ---- 2. the dry run held against real steps on the card -----------------
+    mesh = single_device_mesh()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    launched_any = dict.fromkeys(DRYRUN_MUST_LAUNCH, 0)
+    rec["checks"] = []
+
+    def real_args(bundle, cfg, shape):
+        """The step's arguments on the card: seeded random weights (f32
+        masters), AdamW's zero moments, random tokens or bf16 embeddings, a
+        zero cache, the last position's index."""
+        b, s = shape.global_batch, shape.seq_len
+        params = init_params(gen, model_spec(cfg), dtype=cfg.param_dtype, device=dev)
+
+        def batch_of(specs):
+            return {k: (torch.randint(0, cfg.vocab, tuple(t.shape), generator=gen, device=dev,
+                                      dtype=t.dtype) if not t.dtype.is_floating_point
+                        else torch.randn(tuple(t.shape), generator=gen, device=dev).to(t.dtype))
+                    for k, t in specs.items()}
+
+        if shape.kind == "train":
+            return params, init_state(params), batch_of(bundle.in_specs[2])
+        if shape.kind == "prefill":
+            batch = batch_of(bundle.in_specs[1])
+            return (params, batch) if len(bundle.in_specs) == 2 else (params, batch,
+                                                                       init_cache(cfg, b, s, dev))
+        tokens = torch.randint(0, cfg.vocab, (b, 1), generator=gen, device=dev, dtype=torch.int32)
+        return params, tokens, init_cache(cfg, b, s, dev), s - 1
+
+    for arch, name, seq, batch, kind in DRYRUN_CHECKS:
+        cfg = get_config(arch)
+        shape = ShapeConfig(name, seq, batch, kind)
+        bundle = build_step(cfg, shape, mesh)
+        lowered = bundle.lower()
+        meta = lowered.costs
+        args = real_args(bundle, cfg, shape)
+        bundle(*args)  # warm-up: the allocator, cuBLAS's handles
+        torch.cuda.synchronize()
+        zero_counts()
+        real = count_costs(bundle, *args)
+        torch.cuda.synchronize()
+        launched = counts()
+        if real.flops != meta.flops or real.bytes != meta.bytes:
+            got, want = op_census(real), op_census(meta)
+            diff = {k: (got.get(k), want.get(k)) for k in sorted(set(got) | set(want))
+                    if got.get(k) != want.get(k)}
+            raise AssertionError(f"[28] {arch} {name}: the card counted flops {real.flops} bytes "
+                                 f"{real.bytes}, the meta run {meta.flops} and {meta.bytes}; "
+                                 f"census (card, meta) where they differ: {diff}")
+        calls = {k: v.calls for k, v in meta.kernels.items()}
+        if {k: v.calls for k, v in real.kernels.items()} != calls:
+            raise AssertionError(f"[28] {arch} {name}: kernel calls on the card "
+                                 f"{ {k: v.calls for k, v in real.kernels.items()} } != meta {calls}")
+        moved = {k: v for k, v in launched.items() if v}
+        # the launch counter of a kernel entry: "flash_attention_fwd" moves "flash_attention"
+        want_launches = {k.removesuffix("_fwd"): n for k, n in calls.items()}
+        if moved != want_launches:
+            raise AssertionError(f"[28] {arch} {name}: the launch counters moved {moved}, the counted "
+                                 f"kernel calls imply {want_launches}")
+        for k, n in moved.items():
+            if k in launched_any:
+                launched_any[k] += n
+        # memory: the step's peak above its arguments against the prediction
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        result = bundle(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del result
+        temp = lowered.memory.temp_size_in_bytes
+        dev_us, wall_ms = profile_breakdown(lambda: bundle(*args), f"[28] {arch} {name}", top=5)
+        busy_ms = sum(dev_us.values()) / 1e3 if dev_us else None
+        model_flops = model_flops_for_cell(cfg, shape)
+        terms = RooflineTerms(arch=arch, shape=name, mesh=mesh_name(mesh), chips=1,
+                              hlo_flops=meta.flops, hlo_bytes=meta.bytes,
+                              model_flops=model_flops)
+        row = {
+            "arch": arch, "shape": name, "tokens": shape.tokens, "kind": kind,
+            "flops": meta.flops, "bytes": meta.bytes, "model_flops": model_flops,
+            "kernel_calls": calls, "compute_s": terms.compute_s, "memory_s": terms.memory_s,
+            "dominant": terms.dominant, "step_time_ms": terms.step_time_s * 1e3,
+            "argument_bytes": lowered.memory.argument_size_in_bytes, "temp_bytes": temp,
+            "peak_bytes": peak, "peak_over_temp": peak / temp if temp else None,
+            "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": None if busy_ms is None else max(0.0, 1 - busy_ms / wall_ms),
+            "mfu_busy": None if busy_ms is None else model_flops / (PEAK_FLOPS_BF16 * busy_ms / 1e3),
+            "mfu_wall": model_flops / (PEAK_FLOPS_BF16 * wall_ms / 1e3),
+            "meta_s": lowered.seconds,
+        }
+        rec["checks"].append(row)
+        log(f"[28] {arch} {name}: flops {meta.flops:.6e} and bytes {meta.bytes:.6e} equal on the card "
+            f"and on meta; kernel calls {calls} as launched; roofline {terms.step_time_s * 1e3:.3f} ms "
+            f"({terms.dominant}; C {terms.compute_s * 1e3:.3f} ms, M {terms.memory_s * 1e3:.3f} ms); "
+            f"busy {'not measured' if busy_ms is None else f'{busy_ms:.3f} ms'} of wall "
+            f"{wall_ms:.3f} ms (idle {row['idle_share'] if busy_ms is None else round(row['idle_share'], 4)}); "
+            f"mfu busy {row['mfu_busy'] if busy_ms is None else round(row['mfu_busy'], 4)} wall "
+            f"{row['mfu_wall']:.4f}; peak above the arguments {peak / 2**30:.3f} GiB against the "
+            f"predicted temp {temp / 2**30:.3f} GiB (ratio {row['peak_over_temp']:.3f})")
+        del args, bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+    missing = [k for k, n in launched_any.items() if not n]
+    if missing:
+        raise AssertionError(f"[28] no check cell launched {missing}")
+    log(f"[28] launches over the check cells: {launched_any}")
+
+    # ---- 3. perf_iter: qwen3-0.6b's train cell under two remat policies -----
+    shape = ShapeConfig("train_2x2048", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rec["remat"] = {}
+    for policy in ("nothing", "dots"):
+        terms, costs, mem = run_iteration("qwen3-0.6b", shape, {"remat_policy": policy}, top=5)
+        temp = mem["temp_size_in_bytes"]
+        rec["remat"][policy] = {"flops": costs.flops, "temp_bytes": temp,
+                                "phase23_peak_gib": (remat_peaks or {}).get(policy)}
+        log(f"[28] perf_iter qwen3-0.6b {shape.name} remat_policy {policy}: flops {costs.flops:.6e}, "
+            f"temp {temp / 2**30:.3f} GiB (the train step: grads and AdamW); phase 23's grad step "
+            f"measured {(remat_peaks or {}).get(policy, 'not run')} GiB above the params")
+    nothing, dots = rec["remat"]["nothing"], rec["remat"]["dots"]
+    if not (nothing["flops"] > dots["flops"] and nothing["temp_bytes"] < dots["temp_bytes"]):
+        raise AssertionError(f"[28] remat 'nothing' must count more flops and less temp than 'dots': "
+                             f"{rec['remat']}")
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"[28] phase wall {rec['wall_s']:.1f} s of a {DRYRUN_BUDGET_S:.0f} s budget "
+        f"({'within' if rec['wall_s'] <= DRYRUN_BUDGET_S else 'OVER'}) on {smi}")
+    log(f"[28] dryrun {json.dumps(rec)}")
+    return rec
 
 
 def main() -> int:
@@ -1831,14 +2049,18 @@ def main() -> int:
     if n_bad != 32 or n_lib != 32:
         raise AssertionError(f"quorum_compare counted {n_bad} (isclose {n_lib}), planted 32")
     results["quorum_compare"] = rec
-    # the grid trainer's comparator on non-finite leaves: card verdicts == CPU verdicts
+    # the grid trainer's comparator on non-finite leaves: card verdicts == CPU
+    # verdicts, beside 16384 rows of the embedding gradient: 3 bad elements
+    # of 16.8M fall between the fractions as of the whole leaf, and the
+    # sixteen CPU verdicts over the whole leaf cost half a minute
     small = randn(1000, dtype=f32)
+    qe = qa[:16384]
     cases = {"nan": float("nan"), "inf": float("inf")}
     for label, val in cases.items():
         bad_leaf = small.clone()
         bad_leaf[:3] = val
-        for ta, tb in (({"e": qa, "x": bad_leaf}, {"e": qa, "x": small}),
-                       ({"e": qa, "x": bad_leaf}, {"e": qa, "x": bad_leaf.clone()})):
+        for ta, tb in (({"e": qe, "x": bad_leaf}, {"e": qe, "x": small}),
+                       ({"e": qe, "x": bad_leaf}, {"e": qe, "x": bad_leaf.clone()})):
             for frac in (0.0, 1e-9, 1e-8, 1e-6):
                 cmp = grad_comparator(max_bad_fraction=frac)
                 got = cmp({"grads": ta}, {"grads": tb})
@@ -1848,7 +2070,7 @@ def main() -> int:
                     raise AssertionError(f"grad_comparator on a {label} leaf: card {got}, cpu {want}")
     log(f"[2] quorum_compare: {n_bad} bad of {n_q} (32 planted); grad_comparator verdicts on "
         f"NaN and inf leaves equal the CPU's")
-    del qa, qb
+    del qa, qb, qe
 
     # int8 quantize and dequantize, bit for bit (tolerance 0), at the
     # embedding gradient's shape and at a ragged leaf (padded to 14 x 256,
@@ -2701,6 +2923,7 @@ def main() -> int:
                           seed=SEED)
         b = {k: torch.from_numpy(v.astype(np.int64)).to(dev) for k, v in make_batch(data, 0, 0).items()}
         first = None
+        peaks = {}
         for policy in ("nothing", "dots_nb", "dots"):
             step = make_grad_step(cfg.scaled(remat=True, remat_policy=policy))
             step(p, b)  # warm-up: allocator, cuBLAS handles
@@ -2711,6 +2934,7 @@ def main() -> int:
             grads, m = step(p, b)
             torch.cuda.synchronize()
             peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            peaks[policy] = round(peak, 3)
             leaves = tree_leaves(grads)
             if first is None:
                 first = (m["loss"], leaves)
@@ -2727,6 +2951,7 @@ def main() -> int:
         del p, b, first
         gc.collect()
         torch.cuda.empty_cache()
+        return peaks
 
     # qwen3 at 2 layers, where the step is mostly the 152k-vocab CE, and at
     # all 28, where the layers' products weigh; qwen3-moe at smoke width and
@@ -2735,7 +2960,9 @@ def main() -> int:
     # GB each, leave no room for a second layer)
     for remat_cfg in (cfg.scaled(n_layers=2), cfg, get_smoke_config("qwen3-moe-235b-a22b"),
                       qmoe.scaled(n_layers=1)):
-        remat_policies("23", remat_cfg)
+        peaks = remat_policies("23", remat_cfg)
+        if remat_cfg is cfg:
+            remat_peaks = peaks  # qwen3-0.6b at all 28 layers, for phase 28
 
     # ---- 24. hubert-xlarge: the encoder, a grid run, f32 checks ------------
     t_phase = time.perf_counter()
@@ -2880,6 +3107,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     service_phase(dev, counts, zero_counts, smi)
+
+    # ---- 28. the dry run and the roofline, held against real steps ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_phase(dev, counts, zero_counts, smi, remat_peaks)
 
     # ---- result lines ------------------------------------------------------
     # each row's TPU kernel and CUDA source, from the kernel its name starts

@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
+from .._costs import KernelCost, counted, nbytes, op_type
 from .ref import attention_bwd_ref, attention_ref
 
 MAX_TILE_D = 256  # the widest D of the tile kernels; past it the wide-D kernels
@@ -73,7 +74,9 @@ def _heads_first(*ts: torch.Tensor):
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[int, int, int, int, int]:
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    """What the kernels refuse, on the card and on the meta device alike (a
+    dry run fails where the card would)."""
+    if q.device.type not in ("cuda", "meta") or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, not {q.dtype}")
@@ -86,6 +89,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[int, int,
     return b, s, h, kv, d
 
 
+def _fwd_cost(q, k, v, *, causal=True, with_lse=False) -> KernelCost:
+    """The products of the scores and the output, ``4 B H S^2 D`` at the
+    true D, halved under the causal mask; q, k and v read, the output (and
+    the log-sum-exp) written."""
+    b, s, h, d = q.shape
+    flops = 4.0 * b * h * s * s * d / (2 if causal else 1)
+    moved = 2 * nbytes(q) + nbytes(k) + nbytes(v) + 4 * b * h * s * with_lse
+    return KernelCost(flops, moved, flops, op_type(q))
+
+
+def _bwd_cost(q, k, v, out, lse, dout, *, causal=True) -> KernelCost:
+    """2.5 times the forward's products (the scores again, dV, dP, dQ, dK);
+    q, k, v, the output, dO and the log-sum-exp read, dQ, dK and dV written."""
+    fwd = _fwd_cost(q, k, v, causal=causal)
+    moved = 4 * nbytes(q) + 2 * (nbytes(k) + nbytes(v)) + nbytes(lse)
+    return KernelCost(2.5 * fwd.flops, moved, 2.5 * fwd.flops, fwd.ops_type)
+
+
+@counted("flash_attention_fwd", _fwd_cost)
 def flash_attention_fwd(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, S, KV, D)
@@ -102,8 +124,11 @@ def flash_attention_fwd(
         res = attention_ref(*_heads_first(q, k, v), causal=causal, sm_scale=sm_scale,
                             return_lse=with_lse)
         out, lse = res if with_lse else (res, None)
-        return out.movedim(1, 2), lse
+        return out.movedim(1, 2).contiguous(), lse  # the kernel's layout
     b, s, h, kv, d = _check(q, k, v)
+    if q.device.type == "meta":
+        lse = q.new_empty((b, h, s), dtype=torch.float32) if with_lse else None
+        return q.new_empty((b, s, h, d)), lse
     q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
@@ -120,6 +145,7 @@ def flash_attention_fwd(
     return out, lse
 
 
+@counted("flash_attention_bwd", _bwd_cost)
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     dout: torch.Tensor, *, causal: bool = True,
@@ -131,12 +157,14 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         dq, dk, dv = attention_bwd_ref(*_heads_first(q, k, v, out), lse, dout.movedim(1, 2),
                                        causal=causal, sm_scale=sm_scale)
-        return dq.movedim(1, 2), dk.movedim(1, 2), dv.movedim(1, 2)
+        return tuple(t.movedim(1, 2).contiguous() for t in (dq, dk, dv))  # the kernels' layout
     b, s, h, kv, d = _check(q, k, v)
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError("flash_attention backward: out and dout must match q")
     if lse.shape != (b, h, s) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention backward: lse must be f32 {(b, h, s)}")
+    if q.device.type == "meta":
+        return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
     q, k, v, out, dout = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v, out, dout))
     lse = lse.contiguous()
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .._costs import KernelCost, counted, nbytes
 from .ref import int8_dequantize_ref, int8_quantize_ref
 
 LANES = 256
@@ -39,8 +40,10 @@ launches_dequantize = 0
 
 
 def _device_check(name: str, *ts: torch.Tensor) -> None:
+    """The kernels' tensors are on one card, or on the meta device, where
+    the same checks follow (a dry run fails where the card would)."""
     dev = ts[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in ts):
+    if dev.type not in ("cuda", "meta") or any(t.device != dev for t in ts):
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {[str(t.device) for t in ts]}")
 
 
@@ -62,6 +65,21 @@ def to_rows(x: torch.Tensor, block_rows: int = 256) -> Tuple[torch.Tensor, int]:
     return rows2d, br
 
 
+def _quantize_cost(rows2d, br) -> KernelCost:
+    """x read, the codes and one f32 scale a tile written; six f32
+    operations an element (abs, max, divide, round, two clamps)."""
+    m = rows2d.numel()
+    return KernelCost(0.0, nbytes(rows2d) + m + 4 * (rows2d.shape[0] // br), 6 * m, "float32")
+
+
+def _dequantize_cost(q, scales, br, out_dtype=torch.float32) -> KernelCost:
+    """The codes and scales read, the values written; one f32 operation an
+    element."""
+    m = q.numel()
+    return KernelCost(0.0, m * (1 + out_dtype.itemsize) + nbytes(scales), m, "float32")
+
+
+@counted("int8_quantize", _quantize_cost)
 def quantize_rows(rows2d: torch.Tensor, br: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel on (rows, 256) rows already padded to whole tiles of
     ``br`` rows: ``(q int8 (rows, 256), scales f32 (rows // br, 1))``."""
@@ -75,6 +93,9 @@ def quantize_rows(rows2d: torch.Tensor, br: int) -> Tuple[torch.Tensor, torch.Te
     if d != LANES or rows % br:
         raise ValueError(f"int8_quantize takes (rows, {LANES}) in whole tiles of {br} rows, "
                          f"not {tuple(rows2d.shape)}")
+    if rows2d.device.type == "meta":
+        return (rows2d.new_empty((rows, LANES), dtype=torch.int8),
+                rows2d.new_empty((rows // br, 1), dtype=torch.float32))
     x = rows2d.contiguous()
     q = torch.empty((rows, LANES), dtype=torch.int8, device=x.device)
     scales = torch.empty((rows // br, 1), dtype=torch.float32, device=x.device)
@@ -86,6 +107,7 @@ def quantize_rows(rows2d: torch.Tensor, br: int) -> Tuple[torch.Tensor, torch.Te
     return q, scales
 
 
+@counted("int8_dequantize", _dequantize_cost)
 def dequantize_rows(
     q: torch.Tensor, scales: torch.Tensor, br: int, out_dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
@@ -102,6 +124,8 @@ def dequantize_rows(
     if d != LANES or rows % br or scales.numel() != rows // br:
         raise ValueError(f"int8_dequantize takes (rows, {LANES}) codes in tiles of {br} rows with "
                          f"one scale each, not {tuple(q.shape)} and {scales.numel()} scales")
+    if q.device.type == "meta":
+        return q.new_empty((rows, LANES), dtype=out_dtype)
     qc, sc = q.contiguous(), scales.contiguous()
     out = torch.empty((rows, LANES), dtype=out_dtype, device=q.device)
     fn = _build.entry("int8_quant", "repro_int8_dequantize", _D_ARGTYPES)

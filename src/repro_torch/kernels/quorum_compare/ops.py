@@ -21,6 +21,7 @@ from typing import Any, Tuple
 import torch
 
 from .. import _build
+from .._costs import KernelCost, counted, nbytes
 from repro_torch.models.layers import tree_leaves
 from .ref import quorum_compare_ref, quorum_pair_counts_ref
 
@@ -48,6 +49,19 @@ launches = 0
 launches_pairs = 0
 
 
+def _compare_cost(a, b, **_) -> KernelCost:
+    """Both payloads read; six f32 operations an element."""
+    return KernelCost(0.0, nbytes(a) + nbytes(b), 6 * a.numel(), "float32")
+
+
+def _pairs_cost(rows, lo, hi, **_) -> KernelCost:
+    """The rows read once, the counts written; five f32 operations an
+    element of each pair (row i against every earlier row, i in [lo, hi))."""
+    pairs = (hi * (hi - 1) - lo * (lo - 1)) // 2
+    return KernelCost(0.0, nbytes(rows) + 4 * (hi - lo) * hi, 5 * rows.shape[1] * pairs, "float32")
+
+
+@counted("quorum_compare", _compare_cost)
 def quorum_compare(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -68,10 +82,13 @@ def quorum_compare(
         raise ValueError(f"quorum_compare sizes differ: {a.numel()} vs {b.numel()}")
     if a.device.type == "cpu":
         return quorum_compare_ref(a, b, rtol, atol)
-    if a.device.type != "cuda" or b.device != a.device:
+    # what the kernel refuses, on the card and on the meta device alike
+    if a.device.type not in ("cuda", "meta") or b.device != a.device:
         raise ValueError(f"quorum_compare runs on cuda or cpu tensors, not {a.device}/{b.device}")
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
         raise TypeError(f"quorum_compare kernel takes float32 or bfloat16 pairs, not {a.dtype}/{b.dtype}")
+    if a.device.type == "meta":
+        return a.new_empty((), dtype=torch.int64), a.new_empty((), dtype=torch.float32)
     n = a.numel()
     cnt = torch.zeros((), dtype=torch.int64, device=a.device)
     sq = torch.zeros((), dtype=torch.float32, device=a.device)
@@ -99,6 +116,7 @@ def _pair_slices(lo: int, hi: int, d: int, esize: int) -> int:
     return max(1, -(-chunks // per))
 
 
+@counted("quorum_pair_counts", _pairs_cost)
 def quorum_pair_counts(
     rows: torch.Tensor,
     lo: int,
@@ -125,10 +143,13 @@ def quorum_pair_counts(
         raise ValueError(f"quorum_pair_counts takes rows shorter than 2**31, not {d}")
     if rows.device.type == "cpu":
         return quorum_pair_counts_ref(rows, lo, hi, rtol, atol)
-    if rows.device.type != "cuda":
+    # what the kernel refuses, on the card and on the meta device alike
+    if rows.device.type not in ("cuda", "meta"):
         raise ValueError(f"quorum_pair_counts runs on cuda or cpu tensors, not {rows.device}")
     if rows.dtype not in _DTYPES:
         raise TypeError(f"quorum_pair_counts kernel takes float32 or bfloat16 rows, not {rows.dtype}")
+    if rows.device.type == "meta":
+        return rows.new_empty((hi - lo, hi), dtype=torch.int32)
     counts = torch.empty((hi - lo, hi), dtype=torch.int32, device=rows.device)
     if hi < 2 or lo == hi:
         return counts.zero_()

@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
+from .._costs import KernelCost, counted, nbytes
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 H100_SMS = 132
@@ -40,7 +41,9 @@ launches_bwd = 0
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor) -> int:
-    if x.device.type != "cuda":
+    """What the kernels refuse, on the card and on the meta device alike (a
+    dry run fails where the card would)."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"rmsnorm runs on cuda or cpu tensors, not {x.device}")
     d = x.shape[-1]
     if x.dtype not in _DTYPES:
@@ -59,12 +62,29 @@ def bwd_parts(rows: int, d: int) -> int:
     return max(1, min(rows, BWD_MAX_PARTS, max(H100_SMS, BWD_PARTIAL_FLOATS // d)))
 
 
+def _fwd_cost(x, scale, eps=1e-6) -> KernelCost:
+    """x read and the output written (and the scale, f32); four f32
+    operations an element."""
+    n, d = x.numel(), x.shape[-1]
+    return KernelCost(0.0, 2 * nbytes(x) + 4 * d, 4 * n, "float32")
+
+
+def _bwd_cost(x, scale, dy, eps=1e-6) -> KernelCost:
+    """x and dy read, dx written, the scale read and dscale written (f32);
+    ten f32 operations an element."""
+    n, d = x.numel(), x.shape[-1]
+    return KernelCost(0.0, 3 * nbytes(x) + 8 * d, 10 * n, "float32")
+
+
+@counted("rmsnorm_fwd", _fwd_cost)
 def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """The forward alone: ``x * rsqrt(mean(x**2) + eps) * scale``, f32 statistics."""
     global launches
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
     d = _check(x, scale)
+    if x.device.type == "meta":
+        return x.new_empty(x.shape)
     xf = x.reshape(-1, d).contiguous()
     sc = scale.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(xf)
@@ -78,6 +98,7 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torc
     return out.view(x.shape)
 
 
+@counted("rmsnorm_bwd", _bwd_cost)
 def rmsnorm_bwd(
     x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -88,6 +109,8 @@ def rmsnorm_bwd(
     d = _check(x, scale)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"rmsnorm backward: dy {tuple(dy.shape)} {dy.dtype} does not match x")
+    if x.device.type == "meta":
+        return x.new_empty(x.shape), x.new_empty(x.shape[-1:], dtype=torch.float32)
     xf = x.reshape(-1, d).contiguous()
     gf = dy.reshape(-1, d).contiguous()
     sc = scale.to(device=x.device, dtype=torch.float32).contiguous()

@@ -32,9 +32,12 @@ atomics and no per-head (B, S, H, N) shares, so equal inputs give equal
 bits. ``ssd_scan_bwd`` without ``states`` (the standalone route) first runs
 the forward's chunk-state kernel and pass into the same bf16 copy: six
 launches, the same bits. ``ssd_scan_with_states`` returns the forward's
-states beside its outputs. On the CPU the plain version is differentiated
-by autograd, and ``states`` are the plain version's at ``block_q``
-(``ref.ssd_chunk_states_ref``). ``launches`` and ``launches_bwd`` count
+states beside its outputs. On the CPU the same route runs the plain
+versions at ``block_q``: ``ref.ssd_scan_ref`` forward, and backward
+autograd of it run again from the saved inputs (the gradient of the plain
+version, bit for bit); so a step makes the same calls, and counts the same
+costs, on the CPU, the meta device and the card. ``ssd_scan_bwd`` on CPU
+tensors is ``ref.ssd_scan_bwd_ref``. ``launches`` and ``launches_bwd`` count
 the calls that launched the forward and backward kernels; the CPU path
 leaves them alone. ``last_bwd_scratch`` names what the last backward call
 on the card allocated (``bwd_scratch``).
@@ -47,6 +50,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .. import _build
+from .._costs import KernelCost, counted, nbytes, op_type
 from .ref import ssd_chunk_states_ref, ssd_scan_bwd_ref, ssd_scan_ref
 
 MAX_N = 256
@@ -78,8 +82,10 @@ last_bwd_scratch: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
 
 
 def _check(x, dt, A, Bm, Cm, initial_state) -> Tuple[int, int, int, int, int, int]:
+    """What the kernels refuse, on the card and on the meta device alike (a
+    dry run fails where the card would)."""
     ts = (x, dt, A, Bm, Cm) + ((initial_state,) if initial_state is not None else ())
-    if x.device.type != "cuda" or any(t.device != x.device for t in ts):
+    if x.device.type not in ("cuda", "meta") or any(t.device != x.device for t in ts):
         raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not {[str(t.device) for t in ts]}")
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"ssd_scan kernel takes x, B and C in float32 or bfloat16 alike, not "
@@ -98,13 +104,52 @@ def _check(x, dt, A, Bm, Cm, initial_state) -> Tuple[int, int, int, int, int, in
     return b, s, h, g, p, n
 
 
-def _scan_fwd(x, dt, A, Bm, Cm, initial_state, keep=False):
-    """The forward kernels on CUDA tensors that ``_check`` passed:
-    ``(y, final_state)``, and with ``keep`` also the states the backward
-    takes, ``(incoming states (B, nc, H, P, N) in x's dtype, totals
-    (B, H, nc) f32)``."""
+def _fwd_cost(x, dt, A, Bm, Cm, initial_state=None, **_) -> KernelCost:
+    """x, B, C, dt and A read, y and the final state written (an initial
+    state read); 2 x 2 x P x N products a position and head."""
+    b, s, h, p = x.shape
+    state = 4 * b * h * p * Bm.shape[-1]
+    moved = (2 * nbytes(x) + nbytes(Bm) + nbytes(Cm) + 4 * (dt.numel() + A.numel())
+             + state * (2 if initial_state is not None else 1))
+    products = 4.0 * x.numel() * Bm.shape[-1]
+    return KernelCost(products, moved, products, op_type(x))
+
+
+def _bwd_cost(x, dt, A, Bm, Cm, dy, dstate_final=None, initial_state=None, **_) -> KernelCost:
+    """x, B, C, dt, dy and A read, dx, dB, dC, ddt and dA written (an
+    initial state read and its gradient written, a final-state gradient
+    read); twice the forward's products."""
+    b, s, h, p = x.shape
+    state = 4 * b * h * p * Bm.shape[-1]
+    moved = (3 * nbytes(x) + 2 * (nbytes(Bm) + nbytes(Cm)) + 8 * (dt.numel() + A.numel())
+             + state * (2 * (initial_state is not None) + (dstate_final is not None)))
+    products = 8.0 * x.numel() * Bm.shape[-1]
+    return KernelCost(products, moved, products, op_type(x))
+
+
+@counted("ssd_scan_fwd", _fwd_cost)
+def _scan_fwd(x, dt, A, Bm, Cm, initial_state, keep=False, block_q=128):
+    """The forward kernels: ``(y, final_state)``, and with ``keep`` also
+    the states the backward takes, ``(incoming states (B, nc, H, P, N) in
+    x's dtype, totals (B, H, nc) f32)``. On the meta device, outputs of
+    those shapes; on the CPU the plain versions at ``block_q``."""
     global launches
+    if x.device.type == "cpu":
+        y, state = ssd_scan_ref(x, dt, A, Bm, Cm, block_q=block_q, initial_state=initial_state)
+        if keep:
+            return y, state, ssd_chunk_states_ref(x, dt, A, Bm, block_q=block_q,
+                                                  initial_state=initial_state)
+        return y, state
     b, s, h, g, p, n = _check(x, dt, A, Bm, Cm, initial_state)
+    if x.device.type == "meta":
+        nc = -(-s // CHUNK)
+        f32 = torch.float32
+        y, state = x.new_empty(x.shape), x.new_empty((b, h, p, n), dtype=f32)
+        if not keep:
+            return y, state
+        ws = x.new_empty((b, nc, h, p, n), dtype=f32)
+        s_in = ws if x.dtype != torch.bfloat16 else ws.new_empty(ws.shape, dtype=x.dtype)
+        return y, state, (s_in, x.new_empty((b, h, nc), dtype=f32))
     x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, Bm, Cm))
     dt, A = dt.float(), A.float().contiguous()
     init = None if initial_state is None else initial_state.float().contiguous()
@@ -169,6 +214,7 @@ def bwd_scratch(b: int, s: int, h: int, g: int, p: int, n: int, dtype: torch.dty
     return out
 
 
+@counted("ssd_scan_bwd", _bwd_cost)
 def ssd_scan_bwd(
     x: torch.Tensor,  # (B, S, H, P)
     dt: torch.Tensor,  # (B, S, H), post-softplus
@@ -210,6 +256,14 @@ def ssd_scan_bwd(
                 or total.device != x.device):
             raise ValueError(f"ssd_scan backward: states must be contiguous {(b, nc, h, p, n)} "
                              f"{x.dtype} and {(b, h, nc)} float32 on {x.device}")
+    if x.device.type == "meta":
+        f32 = torch.float32
+        grads = (x.new_empty(x.shape), x.new_empty((b, s, h), dtype=f32), x.new_empty((h,), dtype=f32),
+                 Bm.new_empty(Bm.shape), Bm.new_empty(Bm.shape), x.new_empty((b, h, p, n), dtype=f32))
+        # the card's scratch, alive during the call as there
+        _scratch = [x.new_empty(shape, dtype=dtype) for shape, dtype in
+                    bwd_scratch(b, s, h, g, p, n, x.dtype, states is None).values()]
+        return grads
     x, Bm, Cm, dy = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, Bm, Cm, dy))
     dt, A = dt.float(), A.float().contiguous()
     init = None if initial_state is None else initial_state.float().contiguous()
@@ -239,25 +293,49 @@ def ssd_scan_bwd(
     return dx, ddt, dA, dB, dC, dinit
 
 
+@counted("ssd_scan_bwd", _bwd_cost)
+def _input_grads(x, dt, A, Bm, Cm, dy, dstate_final, initial_state, *, block_q, states, needs):
+    """``_SSDScan``'s input gradients, in the inputs' dtypes (None where
+    ``needs`` wants none): on the CPU autograd of the plain version, run
+    again from the inputs (so bit for bit ``ssd_scan_ref``'s gradient),
+    elsewhere ``ssd_scan_bwd`` over the forward's ``states``."""
+    if x.device.type == "cpu":
+        with torch.enable_grad():
+            leaves = [t if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip((x, dt, A, Bm, Cm, initial_state), needs)]
+            y, state = ssd_scan_ref(*leaves[:5], block_q=block_q, initial_state=leaves[5])
+            outs = (y,) if dstate_final is None else (y, state)
+            cots = (dy,) if dstate_final is None else (dy, dstate_final)
+            grads = iter(torch.autograd.grad(outs, [t for t, n in zip(leaves, needs) if n], cots))
+        return tuple(next(grads) if n else None for n in needs)
+    dx, ddt, dA, dB, dC, dinit = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate_final, initial_state,
+                                              block_q=block_q, states=states)
+    return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC,
+            None if initial_state is None else dinit.to(initial_state.dtype))
+
+
 class _SSDScan(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dt, A, Bm, Cm, initial_state):
-        y, state, (s_in, total) = _scan_fwd(x, dt, A, Bm, Cm, initial_state, keep=True)
+    def forward(ctx, x, dt, A, Bm, Cm, initial_state, block_q):
+        if x.device.type == "cpu":  # the backward differentiates the plain version again
+            y, state = _scan_fwd(x, dt, A, Bm, Cm, initial_state, block_q=block_q)
+            states = ()
+        else:
+            y, state, states = _scan_fwd(x, dt, A, Bm, Cm, initial_state, keep=True)
         # the forward's chunk states, saved (not attributes) so that remat's
         # hooks drop them with the layer's other saved tensors
-        ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state, s_in, total)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state, *states)
         ctx.set_materialize_grads(False)  # None cotangents stay None (the final state's)
+        ctx.block_q = block_q
         return y, state
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        x, dt, A, Bm, Cm, init, s_in, total = ctx.saved_tensors
+        x, dt, A, Bm, Cm, init, *states = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        dx, ddt, dA, dB, dC, dinit = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate, init,
-                                                  states=(s_in, total))
-        return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC,
-                None if init is None else dinit.to(init.dtype))
+        return _input_grads(x, dt, A, Bm, Cm, dy, dstate, init, block_q=ctx.block_q,
+                            states=tuple(states), needs=ctx.needs_input_grad[:6]) + (None,)
 
 
 def ssd_scan_with_states(
@@ -274,12 +352,8 @@ def ssd_scan_with_states(
     outputs and the ``states`` that ``ssd_scan_bwd`` takes on this device
     (on the card the forward kernels' own, in one launch of them; on the
     CPU the plain version's at ``block_q``)."""
-    if x.device.type == "cpu":
-        y, state = ssd_scan_ref(x, dt, A, Bm, Cm, block_q=block_q, initial_state=initial_state)
-        return y, state, ssd_chunk_states_ref(x, dt, A, Bm, block_q=block_q,
-                                              initial_state=initial_state)
     with torch.no_grad():
-        return _scan_fwd(x, dt, A, Bm, Cm, initial_state, keep=True)
+        return _scan_fwd(x, dt, A, Bm, Cm, initial_state, keep=True, block_q=block_q)
 
 
 def ssd_scan(
@@ -299,9 +373,7 @@ def ssd_scan(
     taken in f32. ``interpret``, the reference's keyword, is accepted and
     ignored: it names the TPU kernel's interpreter, so a CUDA tensor still
     runs the CUDA kernel."""
-    if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, A, Bm, Cm, block_q=block_q, initial_state=initial_state)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, initial_state)):
-        return _SSDScan.apply(x, dt, A, Bm, Cm, initial_state)
-    return _scan_fwd(x, dt, A, Bm, Cm, initial_state)
+        return _SSDScan.apply(x, dt, A, Bm, Cm, initial_state, block_q)
+    return _scan_fwd(x, dt, A, Bm, Cm, initial_state, block_q=block_q)

@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
+from .._costs import KernelCost, counted, nbytes
 from .ref import swiglu_bwd_ref, swiglu_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -29,8 +30,10 @@ launches_bwd = 0
 
 
 def _check(*ts: torch.Tensor) -> None:
+    """What the kernels refuse, on the card and on the meta device alike (a
+    dry run fails where the card would)."""
     g = ts[0]
-    if g.device.type != "cuda" or any(t.device != g.device for t in ts):
+    if g.device.type not in ("cuda", "meta") or any(t.device != g.device for t in ts):
         raise ValueError(f"swiglu runs on cuda or cpu tensors, not {[str(t.device) for t in ts]}")
     if g.dtype not in _DTYPES or any(t.dtype != g.dtype for t in ts):
         raise TypeError(f"swiglu kernel takes float32 or bfloat16, not {[t.dtype for t in ts]}")
@@ -38,12 +41,26 @@ def _check(*ts: torch.Tensor) -> None:
         raise ValueError(f"swiglu shapes differ: {[tuple(t.shape) for t in ts]}")
 
 
+def _fwd_cost(gate, up) -> KernelCost:
+    """gate and up read, the output written; six f32 operations an element."""
+    return KernelCost(0.0, 3 * nbytes(gate), 6 * gate.numel(), "float32")
+
+
+def _bwd_cost(gate, up, dh) -> KernelCost:
+    """gate, up and dh read, dgate and dup written; fourteen f32 operations
+    an element."""
+    return KernelCost(0.0, 5 * nbytes(gate), 14 * gate.numel(), "float32")
+
+
+@counted("swiglu_fwd", _fwd_cost)
 def swiglu_fwd(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """The forward alone: ``silu(gate) * up`` in f32, in the gate's dtype."""
     global launches
     if gate.device.type == "cpu":
         return swiglu_ref(gate, up)
     _check(gate, up)
+    if gate.device.type == "meta":
+        return gate.new_empty(gate.shape)
     g = gate.contiguous()
     u = up.contiguous()
     out = torch.empty_like(g)
@@ -56,6 +73,7 @@ def swiglu_fwd(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@counted("swiglu_bwd", _bwd_cost)
 def swiglu_bwd(
     gate: torch.Tensor, up: torch.Tensor, dh: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -64,6 +82,8 @@ def swiglu_bwd(
     if gate.device.type == "cpu":
         return swiglu_bwd_ref(gate, up, dh)
     _check(gate, up, dh)
+    if gate.device.type == "meta":
+        return gate.new_empty(gate.shape), gate.new_empty(gate.shape)
     g, u, d = gate.contiguous(), up.contiguous(), dh.contiguous()
     dg, du = torch.empty_like(g), torch.empty_like(g)
     if g.numel():

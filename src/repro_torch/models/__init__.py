@@ -4,9 +4,10 @@ stubs in ``frontends``)."""
 from . import frontends
 from .config import SHAPES, ModelConfig, ShapeConfig, cell_supported, get_shape
 from .convert import params_from_jax
-from .layers import ParamSpec, count_params, init_params
+from .layers import ParamSpec, abstract_params, axes_tree, count_params, init_params
 from .ssm import SSMConfig
 from .transformer import (
+    cache_axes,
     cache_spec,
     forward,
     hybrid_layout,
@@ -22,6 +23,9 @@ __all__ = [
     "ParamSpec",
     "SSMConfig",
     "ShapeConfig",
+    "abstract_params",
+    "axes_tree",
+    "cache_axes",
     "cache_spec",
     "cell_supported",
     "count_params",

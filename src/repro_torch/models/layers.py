@@ -39,6 +39,10 @@ class ParamSpec:
             raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
 
 
+def is_spec(x: Any) -> bool:
+    return isinstance(x, ParamSpec)
+
+
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     """Apply ``fn`` to every leaf of a tree of nested dicts."""
     if isinstance(tree, dict):
@@ -96,6 +100,22 @@ def init_params(
         return (arr * std).to(device=dev, dtype=dt)
 
     return tree_map(make, spec_tree)
+
+
+def _tree_map_specs(fn: Callable[[ParamSpec], Any], tree: Any) -> Any:
+    return tree_map(fn, tree)
+
+
+def abstract_params(spec_tree: Any, dtype: Any = None) -> Any:
+    """Meta-device stand-ins of every leaf's shape and dtype, the dry run's
+    parameters: nothing is allocated."""
+    return _tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=dtype or s.dtype, device="meta"), spec_tree
+    )
+
+
+def axes_tree(spec_tree: Any) -> Any:
+    return _tree_map_specs(lambda s: s.axes, spec_tree)
 
 
 def count_params(spec_tree: Any) -> int:

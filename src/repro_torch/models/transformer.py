@@ -476,3 +476,41 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device: Device = "cud
     dev = resolve_device(device)
     return tree_map(lambda sd: torch.zeros(sd[0], dtype=sd[1], device=dev),
                     cache_spec(cfg, batch, max_seq))
+
+
+def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axes for every cache leaf, built by construction (mirrors
+    ``cache_spec``): batch -> "batch" (data-sharded), the long KV sequence
+    axis -> "kv_seq" (model-sharded, ring-attention style), SSM state
+    unsharded except batch."""
+    attn_ax = {
+        "k": ("layers", "batch", "kv_seq", None, None),
+        "v": ("layers", "batch", "kv_seq", None, None),
+    }
+    mla_ax = {
+        "c_kv": ("layers", "batch", "kv_seq", None),
+        "k_pe": ("layers", "batch", "kv_seq", None),
+    }
+    ssm_ax = {
+        "ssm": ("layers", "batch", None, None, None),
+        "conv": ("layers", "batch", None, None),
+    }
+    if cfg.family in _DENSE_STACK:
+        return {"layers": mla_ax if cfg.attention == "mla" else attn_ax}
+    if cfg.family == "ssm":
+        return {"layers": ssm_ax}
+    if cfg.family == "hybrid":
+        _, _, tail = hybrid_layout(cfg)
+        g_ssm = {
+            "ssm": ("groups", "layers", "batch", None, None, None),
+            "conv": ("groups", "layers", "batch", None, None),
+        }
+        g_attn = {
+            "k": ("groups", "batch", "kv_seq", None, None),
+            "v": ("groups", "batch", "kv_seq", None, None),
+        }
+        out = {"groups_mamba": g_ssm, "groups_attn": g_attn}
+        if tail:
+            out["tail"] = ssm_ax
+        return out
+    raise ValueError(cfg.family)

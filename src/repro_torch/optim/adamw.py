@@ -41,7 +41,7 @@ class AdamWConfig:
 
 
 def _f32(x: float, device: torch.device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def lr_at(cfg: AdamWConfig, step: int, device: torch.device = torch.device("cpu")) -> torch.Tensor:

@@ -7,17 +7,27 @@ returned. ``make_grad_step`` is the grid trainer's job body: gradients of
 ``train_loss`` for every parameter leaf, as a tree shaped like the params.
 ``input_specs`` gives ``(shape, dtype)`` for every input of a cell's step
 kind, nested as the reference's ``ShapeDtypeStruct`` tree.
+
+``build_step`` gives a cell's ``StepBundle``, the single entry point of the
+dry run: ``lower()`` runs the step once on the meta device (nothing is
+allocated) under the cost counter and returns what the dry run reads;
+calling the bundle runs the step on its mesh's device. Only the mesh of one
+device runs so far.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.hlo_costs import ModuleCosts, counting, tensors_in
+from repro_torch.launch.mesh import SHARDED_STEP_TODO, Mesh
 from repro_torch.models.config import ModelConfig, ShapeConfig
-from repro_torch.models.layers import tree_leaves, tree_unflatten, unembed_logits
-from repro_torch.models.transformer import cache_spec, forward, train_loss
-from repro_torch.optim.adamw import AdamWConfig, AdamWState, apply_updates
+from repro_torch.models.layers import abstract_params, tree_leaves, tree_map, tree_unflatten, unembed_logits
+from repro_torch.models.transformer import cache_spec, forward, model_spec, train_loss
+from repro_torch.optim.adamw import AdamWConfig, AdamWState, apply_updates, init_state
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
@@ -113,3 +123,143 @@ def make_decode_step(cfg: ModelConfig) -> Callable[..., Tuple[torch.Tensor, Any]
         return logits, new_cache
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Step bundles (the dry run's entry point)
+# ---------------------------------------------------------------------------
+
+
+def _size(ts: list) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+@dataclass
+class MemoryAnalysis:
+    """What the step holds on its device: its arguments, its outputs (of
+    which ``alias`` are arguments updated in place: params, moments, cache)
+    and ``temp``, the most bytes it allocates alive at once (its new outputs
+    among them)."""
+
+    argument_size_in_bytes: int
+    output_size_in_bytes: int
+    alias_size_in_bytes: int
+    temp_size_in_bytes: int
+
+
+@dataclass
+class LoweredStep:
+    """A step run once on the meta device under the cost counter: what the
+    dry run reads, as the reference reads a compiled module."""
+
+    costs: ModuleCosts
+    memory: MemoryAnalysis
+    seconds: float  # the meta run's wall
+
+
+@dataclass
+class StepBundle:
+    """Everything needed to run or lower one (arch, shape, mesh) cell. The
+    reference's bundle also carries the sharding rules and the params'
+    specs; on the one mesh the port runs (one device) they shard nothing,
+    so they come with the sharded step."""
+
+    cfg: ModelConfig
+    shape: ShapeConfig
+    mesh: Mesh
+    fn: Callable  # the step
+    in_specs: Tuple[Any, ...]  # meta tensors (and the decode index), in call order
+    kind: str
+    donated: Tuple[int, ...] = ()  # the arguments the step updates in place
+    donate: bool = True  # False: ``__call__`` copies those first
+
+    def lower(self) -> LoweredStep:
+        """Run the step once on the meta device, counted."""
+        args = self.in_specs
+        t0 = time.perf_counter()
+        with counting() as costs:
+            out = self.fn(*args)
+        seconds = time.perf_counter() - t0
+        arg_ts, out_ts = tensors_in(args), tensors_in(out)
+        arg_storages = {t.untyped_storage()._cdata for t in arg_ts}
+        memory = MemoryAnalysis(
+            argument_size_in_bytes=_size(arg_ts),
+            output_size_in_bytes=_size(out_ts),
+            alias_size_in_bytes=_size([t for t in out_ts
+                                       if t.untyped_storage()._cdata in arg_storages]),
+            temp_size_in_bytes=costs.peak_bytes,
+        )
+        return LoweredStep(costs, memory, seconds)
+
+    def __call__(self, *args: Any) -> Any:
+        """Run the step on the mesh's device; with ``donate=False`` the
+        arguments it would update in place are copied first."""
+        dev = self.mesh.device
+        if dev is None:
+            raise ValueError("this mesh has no device: a dry-run mesh can be lowered, not run")
+        for t in tensors_in(args):
+            if t.device != dev:
+                raise ValueError(f"the step runs on {dev}, got a tensor on {t.device}")
+        if not self.donate:
+            args = tuple(_clone(a) if i in self.donated else a for i, a in enumerate(args))
+        return self.fn(*args)
+
+
+def _clone(tree: Any) -> Any:
+    if isinstance(tree, AdamWState):
+        return AdamWState(tree.count, _clone(tree.mu), _clone(tree.nu))
+    return tree_map(torch.clone, tree)
+
+
+def _meta(tree: Any) -> Any:
+    """Meta tensors for a tree of ``(shape, dtype)`` pairs."""
+    if isinstance(tree, dict):
+        return {k: _meta(v) for k, v in tree.items()}
+    shape, dtype = tree
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def build_step(
+    cfg: ModelConfig,
+    shape: ShapeConfig,
+    mesh: Mesh,
+    opt_cfg: Optional[AdamWConfig] = None,
+    donate: bool = True,
+) -> StepBundle:
+    """The step of one cell on ``mesh``. The port's steps update params,
+    moments and cache in place (donated); ``donate=False`` copies them
+    first. A mesh of more than one device raises: the sharded step (and
+    with it the reference's ``rules_overrides``) is not ported yet."""
+    if mesh.size != 1:
+        raise NotImplementedError(f"build_step on mesh {mesh.axis_sizes}: {SHARDED_STEP_TODO}")
+    p_abstract = abstract_params(model_spec(cfg), cfg.param_dtype)
+    ins = input_specs(cfg, shape)
+
+    def bundle(fn: Callable, in_specs: Tuple[Any, ...], kind: str, donated: Tuple[int, ...]):
+        return StepBundle(cfg, shape, mesh, fn, in_specs, kind, donated, donate)
+
+    if shape.kind == "train":
+        step = make_train_step(cfg, opt_cfg or AdamWConfig())
+        return bundle(step, (p_abstract, init_state(p_abstract), _meta(ins["batch"])), "train", (0, 1))
+    if shape.kind == "prefill":
+        if not cfg.has_decode:
+            return bundle(make_encoder_step(cfg), (p_abstract, _meta(ins["batch"])), "prefill", ())
+        return bundle(make_prefill_step(cfg), (p_abstract, _meta(ins["batch"]), _meta(ins["cache"])),
+                      "prefill", (2,))
+    if shape.kind == "decode":
+        # one token a sequence against a full context: the last position
+        return bundle(make_decode_step(cfg),
+                      (p_abstract, _meta(ins["tokens"]), _meta(ins["cache"]), shape.seq_len - 1),
+                      "decode", (2,))
+    raise ValueError(shape.kind)
+
+
+def model_flops_for_cell(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS for the roofline table."""
+    if shape.kind == "train":
+        return cfg.train_flops_per_token() * shape.tokens
+    if shape.kind == "prefill":
+        per = cfg.train_flops_per_token() / 3.0  # forward only: 2·N
+        return per * shape.tokens
+    # decode: one token per sequence against a seq_len context
+    return cfg.decode_flops_per_token(context=shape.seq_len) * shape.global_batch

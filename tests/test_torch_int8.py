@@ -171,13 +171,22 @@ class TestPlainAgainstReference:
         assert int((np.asarray(os_) != np.asarray(s)).sum()) == 44
 
 
-def test_wrappers_take_no_plain_path_off_the_cpu():
+def test_wrappers_take_no_plain_path_off_the_cpu(monkeypatch):
+    # a meta tensor (the dry run's) gets outputs of the kernels' shapes and
+    # dtypes: neither the plain version nor a kernel runs
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version or a kernel ran off the CPU")
+
+    for name in ("int8_quantize_ref", "int8_dequantize_ref"):
+        monkeypatch.setattr(ops, name, refuse)
+    monkeypatch.setattr(ops._build, "entry", refuse)
     x = torch.empty(4, 256, device="meta")
-    with pytest.raises(ValueError):
-        ops.int8_quantize(x)
-    with pytest.raises(ValueError):
-        ops.dequantize_rows(torch.empty(4, 256, dtype=torch.int8, device="meta"),
-                            torch.empty(1, 1, device="meta"), 4)
+    q, scales = ops.int8_quantize(x)
+    assert (q.device.type, q.shape, q.dtype, scales.shape, scales.dtype) == (
+        "meta", (4, 256), torch.int8, (1, 1), torch.float32)
+    out = ops.dequantize_rows(torch.empty(4, 256, dtype=torch.int8, device="meta"),
+                              torch.empty(1, 1, device="meta"), 4, torch.bfloat16)
+    assert (out.device.type, out.shape, out.dtype) == ("meta", (4, 256), torch.bfloat16)
     with pytest.raises(ValueError):
         ops.int8_quantize(torch.empty(0))
 

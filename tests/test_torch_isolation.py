@@ -59,8 +59,10 @@ def test_imports_nothing_of_jax_or_repro():
     # core.torch_backend), 98 with the service and the lint (service: the
     # package, protocol, server, loadgen; analysis: the package, __main__,
     # astutil, config, engine, findings, floatops, frozen, observers, purge,
-    # rng)
-    assert int(proc.stdout.split()[-1]) >= 98
+    # rng), 109 with the dry run (kernels._costs; distributed.sharding,
+    # logical, roofline, hlo_costs, hlo_analysis; launch: the package, mesh,
+    # dryrun, perf_iter, roofline_table)
+    assert int(proc.stdout.split()[-1]) >= 109
 
 
 def test_entry_points_raise_without_card():
@@ -127,13 +129,24 @@ def test_service_over_torch_engines_raises_without_card():
     assert asyncio.run(asyncio.wait_for(ping(), timeout=30)) == b"PONG 3\n"  # asked for: runs
 
 
-def test_wrappers_take_no_plain_path_off_the_cpu():
-    # only a CPU tensor takes the plain version; any other device raises
+def test_wrappers_take_no_plain_path_off_the_cpu(monkeypatch):
+    # only a CPU tensor takes the plain version; a meta tensor (the dry run's)
+    # gets outputs of the kernel's shapes and runs nothing, neither the plain
+    # version nor a kernel
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version or a kernel ran off the CPU")
+
+    for mod, names in ((rms_ops, ("rmsnorm_ref", "rmsnorm_bwd_ref")),
+                       (swiglu_ops, ("swiglu_ref", "swiglu_bwd_ref")),
+                       (ssd_ops, ("ssd_scan_ref", "ssd_chunk_states_ref", "ssd_scan_bwd_ref"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    monkeypatch.setattr(rms_ops._build, "entry", refuse)
     x = torch.empty(2, 8, device="meta")
-    with pytest.raises(ValueError):
-        rms_ops.rmsnorm(x, torch.ones(8, device="meta"))
-    with pytest.raises(ValueError):
-        swiglu_ops.swiglu(x, x)
-    with pytest.raises(ValueError):
-        ssd_ops.ssd_scan(x.view(1, 2, 2, 4), x[0, :4].view(1, 2, 2), x[0, :2],
-                         x.view(1, 2, 2, 4)[:, :, :1], x.view(1, 2, 2, 4)[:, :, :1])
+    out = rms_ops.rmsnorm(x, torch.ones(8, device="meta"))
+    assert (out.device.type, out.shape) == ("meta", (2, 8))
+    assert swiglu_ops.swiglu(x, x).shape == (2, 8)
+    y, state = ssd_ops.ssd_scan(x.view(1, 2, 2, 4), x[0, :4].view(1, 2, 2), x[0, :2],
+                                x.view(1, 2, 2, 4)[:, :, :1], x.view(1, 2, 2, 4)[:, :, :1])
+    assert (y.device.type, y.shape, state.shape, state.dtype) == ("meta", (1, 2, 2, 4), (1, 2, 4, 4),
+                                                                  torch.float32)

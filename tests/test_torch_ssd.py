@@ -135,9 +135,20 @@ def test_op_takes_the_plain_version_on_the_cpu():
     assert xg.grad is not None and torch.isfinite(xg.grad).all()
 
 
-def test_op_raises_off_the_cpu():
+def test_op_raises_off_the_cpu(monkeypatch):
+    # off the CPU no plain version runs: a meta tensor (the dry run's) gets
+    # outputs of the kernel's shapes and dtypes, and neither the plain
+    # version nor a kernel is called
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version or a kernel ran off the CPU")
+
+    for name in ("ssd_scan_ref", "ssd_chunk_states_ref", "ssd_scan_bwd_ref"):
+        monkeypatch.setattr(ssd_ops, name, refuse)
+    monkeypatch.setattr(ssd_ops._build, "entry", refuse)
     x = torch.empty((1, 8, 2, 4), device="meta")
-    with pytest.raises(ValueError):
-        ssd_ops.ssd_scan(x, torch.empty((1, 8, 2), device="meta"), torch.empty((2,), device="meta"),
-                         torch.empty((1, 8, 1, 4), device="meta"), torch.empty((1, 8, 1, 4), device="meta"))
+    y, state = ssd_ops.ssd_scan(x, torch.empty((1, 8, 2), device="meta"), torch.empty((2,), device="meta"),
+                                torch.empty((1, 8, 1, 4), device="meta"),
+                                torch.empty((1, 8, 1, 4), device="meta"))
+    assert (y.device.type, y.shape, y.dtype) == ("meta", (1, 8, 2, 4), torch.float32)
+    assert (state.device.type, state.shape, state.dtype) == ("meta", (1, 2, 4, 4), torch.float32)
 
