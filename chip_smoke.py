@@ -193,9 +193,10 @@ Phases, in order; the first failure ends the run with a non-zero exit:
     (2) Whole ``run_spec`` runs, numpy against torch, identical by
     ``assert_results_identical(..., job_states=True)``:
     ``clique_half_fleet_defended``, ``blackout_half`` and ``cpu_gpu_mix``
-    at their test sizes and ``adversarial_10k`` (3000 jobs, a 500-host
-    clique, 200 credit farmers, churn, epoch 60, half a virtual day; cut to
-    5000 hosts, half its fleet), with both walls. (3) A
+    at their test sizes and ``adversarial_10k`` (3000 jobs, churn, epoch 60,
+    half a virtual day; cut to 2500 hosts, a quarter of its fleet, with a
+    250-host clique and 100 credit farmers, its adversaries in proportion),
+    with both walls. (3) A
     ``quorum_compare`` row at the digest's shape, (4096,) x 2 f32 (the pairwise kernel, which the
     digests no longer call); then a 1000-host, 2000-job run whose jobs
     return 4096-element f64 vectors (``executor``; corruptions add one
@@ -252,10 +253,33 @@ Phases, in order; the first failure ends the run with a non-zero exit:
     time, MFU (model FLOPs over 989.4 TFLOP/s) over the busy time and over
     the wall, and the peak memory above the arguments against the
     predicted temp bytes. Last, ``perf_iter`` on qwen3-0.6b's train cell
-    (2 x 2048) under remat "nothing" and "dots": more FLOPs and less temp
-    for "nothing", printed beside phase 23's measured peaks.
-Every main path (phases 3, 5, 7, 9, 11, 13, 15, 16, 17-21, 24, 25) must
-launch no wide-D flash kernel. Phases 24-28 print their walls.
+    (2 x 2048) under remat "nothing" and "dots": more FLOPs and fewer bytes
+    a device (arguments + outputs - aliased + temp, as the reference
+    counts them) for "nothing", printed beside phase 23's measured peaks.
+29. The sharded train step (a budget of ``SHARDED_BUDGET_S``, its wall
+    printed): qwen3-0.6b at full width and depth (28 layers) in f32,
+    ``build_step`` over a (4, 2) ("data", "model") mesh whose 8 ranks are
+    simulated in this one process on the one card (``simulated_ranks``: a
+    ``fake`` process group under ``LocalTensorMode``), 8 sequences of 128
+    tokens. Params, AdamW moments and batch sit on the sharding rules'
+    placements; the model's constraints redistribute its activations;
+    rmsnorm, swiglu and flash attention, forward and backward, run on each
+    rank's local shards: counters zeroed just before and read just after,
+    each exactly 8 launches (one a rank) a call of the unsharded step
+    (rmsnorm 4 x 28 + 1, swiglu and flash 28). Its loss against the
+    unsharded step's on the card from the same parameters to 1e-4 (relative),
+    every AdamW first moment to 1e-3 of its leaf's largest entry, and every
+    parameter's update (p - p0, sharded against unsharded) to 0.1 x the
+    first step's learning rate lr beyond the part the two gradients explain:
+    AdamW's first update is -lr * (g / (|g| + eps) + wd * p), about lr in
+    size on every element, so a step that skips it or flips its sign fails;
+    the gradients explain lr * |s(g8) - s(g1)| of the difference,
+    s(g) = g / (|g| + eps) (g = mu / (1 - b1)), which is up to 2 x lr only
+    where a gradient is rounding noise near 0 or near eps; busy
+    time, idle share, wall and peak memory (torch.profiler, device activity
+    only), beside the card's name and power limit.
+Every main path (phases 3, 5, 7, 9, 11, 13, 15, 16, 17-21, 24, 25, 29) must
+launch no wide-D flash kernel. Phases 24-29 print their walls.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
 numbers of this run (``launches``: the counts of the grid training run
@@ -279,7 +303,9 @@ phase 25's serving run (and ``launches_vlm_path``). ``quorum_compare``
 also carries ``launches_engines``, the payload run's launches (phase 26),
 which are the ``launches`` of the row ``quorum_compare_digest`` (the
 digest's shape): 0, since the digests go through the pair-count kernel,
-whose row ``quorum_pair_counts`` takes its launches from that run.
+whose row ``quorum_pair_counts`` takes its launches from that run. The
+rmsnorm, swiglu and flash rows, forward and backward, also carry
+``launches_sharded``: phase 29's, on the simulated ranks' local shards.
 Without a CUDA card, or without the repository's ``src/`` beside it, the
 script exits non-zero and prints no result.
 """
@@ -929,12 +955,14 @@ def engines_phase(dev, check, quorum_ops, quorum_compare_ref):
                            horizon=3 * DAY), 0.0),
         (scen.ScenarioSpec(name="cpu_gpu_mix", gpu=True, gpu_fraction=0.5, n_jobs=80,
                            est_hours=0.4), 0.0),
-        # adversarial_10k at its jobs, horizon and adversaries on half its
-        # fleet: its time goes with its RPCs (~10 a host), and the script
-        # has a time limit; step 1 holds every pass at 10 000 hosts
-        (scen.ScenarioSpec(name="adversarial_10k", seed=12, n_hosts=5000, n_jobs=3000,
-                           horizon=0.5 * DAY, est_hours=0.05, clique=scen.Clique(size=500),
-                           farm=scen.CreditFarm(count=200, factor=8.0),
+        # adversarial_10k at its jobs and horizon on a quarter of its fleet,
+        # its clique and credit farmers cut in proportion: its time goes
+        # with its RPCs (~10 a host), and the script has a time limit (cut
+        # from half the fleet for phase 29); step 1 holds every pass at
+        # 10 000 hosts
+        (scen.ScenarioSpec(name="adversarial_10k", seed=12, n_hosts=2500, n_jobs=3000,
+                           horizon=0.5 * DAY, est_hours=0.05, clique=scen.Clique(size=250),
+                           farm=scen.CreditFarm(count=100, factor=8.0),
                            churn_rate=1.0 / (30 * DAY), availability=0.9), 60.0),
     ]
     for spec, epoch in specs:
@@ -1537,22 +1565,153 @@ def dryrun_phase(dev, counts, zero_counts, smi, remat_peaks=None):
     shape = ShapeConfig("train_2x2048", TRAIN_SEQ, TRAIN_BATCH, "train")
     rec["remat"] = {}
     for policy in ("nothing", "dots"):
-        terms, costs, mem = run_iteration("qwen3-0.6b", shape, {"remat_policy": policy}, top=5)
-        temp = mem["temp_size_in_bytes"]
-        rec["remat"][policy] = {"flops": costs.flops, "temp_bytes": temp,
+        terms, costs, per_dev = run_iteration("qwen3-0.6b", shape, {"remat_policy": policy}, top=5)
+        rec["remat"][policy] = {"flops": costs.flops, "per_device_bytes": per_dev,
                                 "phase23_peak_gib": (remat_peaks or {}).get(policy)}
         log(f"[28] perf_iter qwen3-0.6b {shape.name} remat_policy {policy}: flops {costs.flops:.6e}, "
-            f"temp {temp / 2**30:.3f} GiB (the train step: grads and AdamW); phase 23's grad step "
-            f"measured {(remat_peaks or {}).get(policy, 'not run')} GiB above the params")
+            f"per-device bytes {per_dev / 2**30:.3f} GiB (arguments + outputs - aliased + temp: the "
+            f"train step's params, AdamW and grads); phase 23's grad step measured "
+            f"{(remat_peaks or {}).get(policy, 'not run')} GiB above the params")
     nothing, dots = rec["remat"]["nothing"], rec["remat"]["dots"]
-    if not (nothing["flops"] > dots["flops"] and nothing["temp_bytes"] < dots["temp_bytes"]):
-        raise AssertionError(f"[28] remat 'nothing' must count more flops and less temp than 'dots': "
-                             f"{rec['remat']}")
+    if not (nothing["flops"] > dots["flops"] and nothing["per_device_bytes"] < dots["per_device_bytes"]):
+        raise AssertionError(f"[28] remat 'nothing' must count more flops and fewer bytes a device "
+                             f"than 'dots': {rec['remat']}")
     rec["wall_s"] = time.perf_counter() - t_phase
     log(f"[28] phase wall {rec['wall_s']:.1f} s of a {DRYRUN_BUDGET_S:.0f} s budget "
         f"({'within' if rec['wall_s'] <= DRYRUN_BUDGET_S else 'OVER'}) on {smi}")
     log(f"[28] dryrun {json.dumps(rec)}")
     return rec
+
+
+# ---- phase 29: the sharded train step on a simulated (4, 2) mesh -------------
+SHARDED_MESH = (4, 2)
+SHARDED_SEQ = 128
+SHARDED_BATCH = 8
+SHARDED_BUDGET_S = 90.0
+
+
+def sharded_phase(dev, counts, zero_counts, smi, layers=None):
+    """Phase 29: the train step of qwen3-0.6b (full width, all 28 layers,
+    f32) over a (4, 2) mesh of 8 ranks simulated in this process, against
+    the unsharded step on the card (see the module docstring); ``layers``
+    cuts the depth (a probe of the phase alone). Returns the sharded run's
+    launch counts and the phase's record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh, simulated_ranks, single_device_mesh
+    from repro_torch.models import init_params, model_spec
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig, init_state, lr_at
+    from repro_torch.runtime.step_builder import build_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-0.6b").scaled(dtype=torch.float32, remat=False)
+    if layers:
+        cfg = cfg.scaled(n_layers=layers)
+    shape = ShapeConfig("sharded", SHARDED_SEQ, SHARDED_BATCH, "train")
+    params = init_params(torch.Generator(device=dev).manual_seed(SEED + 29), model_spec(cfg), device=dev)
+    g = torch.Generator().manual_seed(SEED + 29)
+    batch = {k: torch.randint(0, cfg.vocab, (SHARDED_BATCH, SHARDED_SEQ), generator=g,
+                              dtype=torch.int32).to(dev) for k in ("tokens", "labels")}
+
+    t = time.perf_counter()
+    one = build_step(cfg, shape, single_device_mesh(), donate=False)
+    p1, o1, m1 = one(params, init_state(params), batch)
+    torch.cuda.synchronize()
+    unsharded_s = time.perf_counter() - t
+    loss1 = float(m1["loss"])
+    p0 = tree_leaves(params)
+    want_mu = tree_leaves(o1.mu)
+    want_d = [w - p for w, p in zip(tree_leaves(p1), p0)]  # each leaf's update
+    del p1, o1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    L = cfg.n_layers
+    ranks = SHARDED_MESH[0] * SHARDED_MESH[1]
+    calls = {"rmsnorm": 4 * L + 1, "swiglu": L, "flash_attention": L}
+    want_launches = {**{k: 0 for k in counts()},
+                     **{k: ranks * n for k, n in calls.items()},
+                     **{f"{k}_bwd": ranks * n for k, n in calls.items()}}
+    opt = AdamWConfig()
+    lr = float(lr_at(opt, 1))
+    update_bound = 0.1 * lr
+
+    def direction(m):  # AdamW's first update is -lr * (this + wd * p), g = m / (1 - b1)
+        return m / (m.abs() + (1 - opt.b1) * opt.eps)
+
+    with simulated_ranks(ranks):
+        mesh = make_mesh(SHARDED_MESH, ("data", "model"))
+        bundle = build_step(cfg, shape, mesh, donate=False)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts()
+        dev_us, wall_ms, (p8, o8, m8) = cuda_profile(lambda: bundle(params, init_state(params), batch))
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        loss8 = float(m8["loss"].full_tensor().reconcile())
+        placements = {str(tuple(t.placements)) for t in tree_leaves(p8)}
+        # each update (p - p0) against the unsharded one beyond the part
+        # that the two gradients explain, lr * |direction(mu8) -
+        # direction(mu1)|: nothing where a gradient is settled, up to 2 x lr
+        # where it is rounding noise (near 0, or near eps). ``skipped``: what
+        # the check would read of a step that left the parameters as they were
+        worst_mu, worst_raw, worst_update, skipped, n_noise, n_all = 0.0, 0.0, 0.0, 0.0, 0, 0
+        for p, want, m1, got, got_m in zip(p0, want_d, want_mu, tree_leaves(p8), tree_leaves(o8.mu)):
+            mu8 = got_m.full_tensor().reconcile()
+            worst_mu = max(worst_mu, float((mu8 - m1).abs().max() / m1.abs().max().clamp(min=1e-30)))
+            explained = lr * (direction(mu8) - direction(m1)).abs()
+            err = ((got.full_tensor().reconcile() - p) - want).abs()
+            worst_raw = max(worst_raw, float(err.max()))
+            worst_update = max(worst_update, float((err - explained).max()))
+            skipped = max(skipped, float((want.abs() - explained).max()))
+            n_noise, n_all = n_noise + int((explained > update_bound).sum()), n_all + m1.numel()
+            del mu8, explained, err
+        del p8, o8, m8, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    busy_ms = sum(dev_us.values()) / 1e3 if dev_us else None
+    rec = {"card": smi, "mesh": list(SHARDED_MESH), "tokens": SHARDED_BATCH * SHARDED_SEQ,
+           "layers": L, "loss_unsharded": loss1, "loss_sharded": loss8,
+           "loss_rel_err": abs(loss8 - loss1) / abs(loss1), "mu_worst_rel": worst_mu,
+           "update_worst_abs": worst_raw, "update_unexplained_worst_abs": worst_update,
+           "update_bound": update_bound, "skipped_update_reads": skipped, "noise_share": n_noise / n_all,
+           "launches": launched,
+           "wall_ms": wall_ms, "busy_ms": busy_ms,
+           "idle_share": None if busy_ms is None else max(0.0, 1 - busy_ms / wall_ms),
+           "peak_gib": peak / 2**30, "unsharded_s": unsharded_s}
+    log(f"[29] sharded train step, qwen3-0.6b f32 {L} layers, {SHARDED_BATCH} x {SHARDED_SEQ} tokens on "
+        f"a {SHARDED_MESH} (data, model) mesh of {ranks} simulated ranks: loss {loss8:.6f} against the "
+        f"unsharded {loss1:.6f} (rel {rec['loss_rel_err']:.2e}, tol 1e-4); AdamW mu worst "
+        f"{worst_mu:.2e} of its leaf's max (tol 1e-3); updates (p - p0) worst {worst_raw:.3e}, beyond "
+        f"the gradients' part {worst_update:.3e} (bound 0.1 x lr = {update_bound:.3e}; the gradients "
+        f"explain more than that on {rec['noise_share']:.2e} of the elements; a skipped update would "
+        f"read {skipped:.3e}); "
+        f"param placements {sorted(placements)}")
+    log(f"[29] launches on the local shards {json.dumps(launched)}")
+    log(f"[29] wall {wall_ms:.1f} ms, device busy "
+        f"{'not measured' if busy_ms is None else f'{busy_ms:.1f} ms'}, idle share "
+        f"{'not measured' if busy_ms is None else f'{rec['idle_share']:.4f}'}, peak memory above the "
+        f"arguments {rec['peak_gib']:.3f} GiB (the unsharded step {unsharded_s:.2f} s) on {smi}")
+    if not rec["loss_rel_err"] <= 1e-4 or not math.isfinite(loss8):
+        raise AssertionError(f"[29] sharded loss {loss8} against the unsharded {loss1}")
+    if not worst_mu <= 1e-3:
+        raise AssertionError(f"[29] an AdamW first moment differs by {worst_mu} of its leaf's max")
+    if not skipped > update_bound:
+        raise AssertionError(f"[29] a skipped update would read {skipped}, within the bound {update_bound}")
+    if not worst_update <= update_bound:
+        raise AssertionError(f"[29] a parameter's update differs by {worst_update} beyond its "
+                             f"gradient's part (bound {update_bound})")
+    if launched != want_launches:
+        raise AssertionError(f"[29] the sharded step launched {launched}; one launch a rank a call "
+                             f"implies {want_launches}")
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"[29] phase wall {rec['wall_s']:.1f} s of a {SHARDED_BUDGET_S:.0f} s budget "
+        f"({'within' if rec['wall_s'] <= SHARDED_BUDGET_S else 'OVER'}) on {smi}")
+    log(f"[29] sharded {json.dumps(rec)}")
+    return launched, rec
 
 
 def main() -> int:
@@ -3113,6 +3272,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     dryrun_phase(dev, counts, zero_counts, smi, remat_peaks)
 
+    # ---- 29. the sharded train step on a simulated (4, 2) mesh --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_launches, _ = sharded_phase(dev, counts, zero_counts, smi)
+
     # ---- result lines ------------------------------------------------------
     # each row's TPU kernel and CUDA source, from the kernel its name starts
     # with; the backward rows name their forward's TPU kernel (the reference
@@ -3172,6 +3336,7 @@ def main() -> int:
             row["launches_serve"] = launches[name]
         if name in ops or name in bwd_ops:
             row["launches_train_loop"] = loop_launches[name]
+            row["launches_sharded"] = sharded_launches[name]  # phase 29, on the ranks' local shards
         if name in ops:
             row["launches_serve_zoo"] = {arch: zoo[arch][name] for arch in zoo}
         if name == "flash_attention_mla":

@@ -2,9 +2,10 @@
 fleet-level fault tolerance (a copy: pure Python), the sharding rules and
 logical-axis constraints, the cost counter (``hlo_costs``: the port has no
 HLO; it counts a step's aten ops and kernel calls) with its analysis, and
-the three-term roofline on the H100's constants. Only the one-device step
-runs so far; the rules resolve for every mesh. The reference's collective
-statistics come with the sharded step."""
+the three-term roofline on the H100's constants. The rules resolve for
+every mesh, and place the sharded train step's DTensors on a mesh of more
+than one device; the dry run lowers the steps of one device, so the
+reference's collective statistics come with the production meshes."""
 from .fault_tolerance import (
     ElasticPlan,
     HeartbeatMonitor,

@@ -16,8 +16,9 @@ counts what its aten ops and its hand-written kernels do:
                 eager port's own traffic, not the reference's fused figure
 
 The reference's collective bytes and while-loop trip counts have no field:
-the port's steps run on one device (the sharded step is not ported yet),
-and eager layer loops run unrolled, so every trip is counted as it runs.
+the dry run lowers the steps of one device (the sharded step's collectives
+are counted with the production meshes, ROADMAP.md Queue A 10b.2), and
+eager layer loops run unrolled, so every trip is counted as it runs.
 
 The kernels run through ``ctypes``, so each wrapper reports its call
 (``repro_torch.kernels._costs``) and the counter ignores the aten ops run

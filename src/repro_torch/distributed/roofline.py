@@ -8,8 +8,9 @@ TPU's.
 
 The FLOPs and bytes come from ``hlo_costs.count_costs`` over the step on
 the meta device (the dry run); whole-module totals, hence the division.
-The port's steps run on one device and move no collective bytes, so its
-dry run leaves ``collective_bytes`` at 0 until the sharded step fills it.
+The dry run lowers the steps of one device, which move no collective
+bytes, so it leaves ``collective_bytes`` at 0 until the production meshes
+fill it (ROADMAP.md, Queue A 10b.2).
 ``kernel_bound_s`` gives one hand-written kernel call's least time on the
 card, the bound of the kernel table in ``PERF.md``.
 """

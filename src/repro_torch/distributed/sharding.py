@@ -17,16 +17,16 @@ The resolution is pure Python and covers every mesh. ``PartitionSpec`` is
 the port's own: a tuple of one entry per dimension (a mesh axis, a tuple of
 them, or None). ``shardings_from_specs`` turns specs into the placements of
 ``torch.distributed.tensor`` (one ``Shard(dim)`` or ``Replicate()`` per mesh
-axis), which need no process group; only the one-device step runs so far
-(``runtime.step_builder.build_step``).
+axis), and ``distribute_tree`` places a tree of tensors with them on a
+mesh of more than one device (``runtime.step_builder.build_step``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from repro_torch.models.layers import tree_map
-from repro_torch.optim.adamw import AdamWState
+# the models and AdamW are imported where they are used: the kernels import
+# ``distributed.dtensors``, and the models import the kernels
 
 # logical axis -> preferred mesh axes, in priority order
 DEFAULT_RULES: Dict[str, Tuple[str, ...]] = {
@@ -146,6 +146,8 @@ def _map2(fn: Any, a: Any, b: Any) -> Any:
 
 def param_specs(rules: ShardingRules, spec_tree: Any) -> Any:
     """Partition spec tree for a ParamSpec tree."""
+    from repro_torch.models.layers import tree_map
+
     return tree_map(lambda s: rules.spec_for(s.shape, s.axes), spec_tree)
 
 
@@ -155,23 +157,28 @@ def tree_specs_from_axes(rules: ShardingRules, sds_tree: Any, axes_tree: Any) ->
     return _map2(lambda s, ax: rules.spec_for(_shape(s), ax), sds_tree, axes_tree)
 
 
-def shardings_from_specs(mesh: Any, spec_tree: Any) -> Any:
-    """``torch.distributed.tensor`` placements for each spec: per mesh axis,
-    ``Shard(dim)`` for the dimension the spec puts on it, else
-    ``Replicate()``."""
+def placements(spec: PartitionSpec, axis_names: Sequence[str]) -> Tuple[Any, ...]:
+    """The ``torch.distributed.tensor`` placements of one spec on a mesh of
+    ``axis_names``: per mesh axis ``Shard(dim)`` for the dimension the spec
+    puts on it, else ``Replicate()``. A dimension on several axes is split
+    over them in mesh order, as jax splits it."""
     from torch.distributed.tensor import Replicate, Shard
 
-    def one(spec: PartitionSpec) -> Tuple[Any, ...]:
-        dims: Dict[str, int] = {}
-        for dim, part in enumerate(spec):
-            for axis in (part if isinstance(part, tuple) else (part,)):
-                if axis is not None:
-                    dims[axis] = dim
-        return tuple(Shard(dims[a]) if a in dims else Replicate() for a in mesh.axis_names)
+    dims: Dict[str, int] = {}
+    for dim, part in enumerate(spec):
+        for axis in (part if isinstance(part, tuple) else (part,)):
+            if axis is not None:
+                dims[axis] = dim
+    return tuple(Shard(dims[a]) if a in dims else Replicate() for a in axis_names)
+
+
+def shardings_from_specs(mesh: Any, spec_tree: Any) -> Any:
+    """``placements`` of each spec of a tree of them (params, AdamW state)."""
+    from repro_torch.optim.adamw import AdamWState
 
     def walk(t: Any) -> Any:
         if isinstance(t, PartitionSpec):
-            return one(t)
+            return placements(t, mesh.axis_names)
         if isinstance(t, dict):
             return {k: walk(v) for k, v in t.items()}
         if isinstance(t, AdamWState):
@@ -179,6 +186,58 @@ def shardings_from_specs(mesh: Any, spec_tree: Any) -> Any:
         raise TypeError(f"not a partition spec tree: {type(t).__name__}")
 
     return walk(spec_tree)
+
+
+def distribute_tree(mesh: Any, tree: Any, placement_tree: Any) -> Any:
+    """Each tensor of ``tree`` as a DTensor on ``mesh``'s device mesh with
+    its placements (``shardings_from_specs``); a DTensor already so placed
+    is kept, one placed otherwise is redistributed. Every rank holds the
+    whole tensor before (the same values, as on the reference's host).
+
+    Ranks simulated in one process (``launch.mesh.simulated_ranks``) are
+    given their own copy of each shard (``_own_shards``)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.optim.adamw import AdamWState
+
+    def one(t: Any, pl: Tuple[Any, ...]) -> Any:
+        if isinstance(t, DTensor):
+            return t if tuple(t.placements) == tuple(pl) else t.redistribute(mesh.device_mesh, pl)
+        return _own_shards(distribute_tensor(t, mesh.device_mesh, pl))
+
+    if isinstance(tree, AdamWState):
+        return AdamWState(count=tree.count,
+                          mu=distribute_tree(mesh, tree.mu, placement_tree.mu),
+                          nu=distribute_tree(mesh, tree.nu, placement_tree.nu))
+    return _map2(one, tree, placement_tree)
+
+
+def _own_shards(d: Any) -> Any:
+    """``d`` with a tensor of its own for every simulated rank. Under
+    ``LocalTensorMode`` a replicated DTensor holds one plain tensor for all
+    ranks, and shards are views of the one distributed tensor, shared by
+    the ranks that hold the same shard; an in-place update from per-rank
+    values (AdamW's, of params and moments) would then be applied once a
+    rank to the same memory. Outside the mode ``d`` is returned as it is."""
+    try:
+        from torch.distributed._local_tensor import enabled_local_tensor_mode
+    except ImportError:  # a torch without simulated ranks
+        return d
+    mode = enabled_local_tensor_mode()
+    if mode is None:
+        return d
+    from torch.distributed.tensor import DTensor
+
+    local = d.to_local()
+    shards = getattr(local, "_local_tensors", None)
+    if shards is None:
+        own = mode.rank_map(lambda r: local.clone())
+    elif len({x.untyped_storage().data_ptr() for x in shards.values()}) < len(shards):
+        own = mode.tensor_map(local, lambda r, x: x.clone())
+    else:
+        return d
+    return DTensor.from_local(own, d.device_mesh, d.placements, run_check=False,
+                              shape=d.shape, stride=d.stride())
 
 
 def batch_specs(rules: ShardingRules, batch_tree: Any, seq_axis: Optional[str] = None) -> Any:
@@ -191,11 +250,15 @@ def batch_specs(rules: ShardingRules, batch_tree: Any, seq_axis: Optional[str] =
             axes[1] = seq_axis
         return rules.spec_for(shape, axes)
 
+    from repro_torch.models.layers import tree_map
+
     return tree_map(one, batch_tree)
 
 
-def opt_state_specs(rules: ShardingRules, param_spec_tree: Any, opt_template: Any) -> AdamWState:
-    """Adam moments shard exactly like their parameters."""
+def opt_state_specs(rules: ShardingRules, param_spec_tree: Any, opt_template: Any) -> Any:
+    """Adam moments shard exactly like their parameters (an ``AdamWState``)."""
+    from repro_torch.optim.adamw import AdamWState
+
     pspecs = param_specs(rules, param_spec_tree)
     return AdamWState(count=PartitionSpec(), mu=pspecs, nu=pspecs)
 

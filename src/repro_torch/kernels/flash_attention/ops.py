@@ -44,8 +44,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.dtensors import dtensor, is_dtensor, local, placements_keeping
+
 from .. import _build
 from .._costs import KernelCost, counted, nbytes, op_type
+from .._sharded import per_rank
 from .ref import attention_bwd_ref, attention_ref
 
 MAX_TILE_D = 256  # the widest D of the tile kernels; past it the wide-D kernels
@@ -107,6 +110,7 @@ def _bwd_cost(q, k, v, out, lse, dout, *, causal=True) -> KernelCost:
     return KernelCost(2.5 * fwd.flops, moved, 2.5 * fwd.flops, fwd.ops_type)
 
 
+@per_rank
 @counted("flash_attention_fwd", _fwd_cost)
 def flash_attention_fwd(
     q: torch.Tensor,  # (B, S, H, D)
@@ -145,6 +149,7 @@ def flash_attention_fwd(
     return out, lse
 
 
+@per_rank
 @counted("flash_attention_bwd", _bwd_cost)
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
@@ -216,7 +221,29 @@ def flash_attention(
     accepted and ignored: the kernels' tiles are fixed by D and the dtype
     (the result does not depend on the tiling beyond rounding), and
     ``interpret`` names the TPU kernel's interpreter, so a CUDA tensor still
-    runs the CUDA kernels."""
+    runs the CUDA kernels. DTensors (the sharded step) run the kernels on
+    each rank's batch rows and heads (``_sharded``)."""
+    if is_dtensor(q):
+        return _sharded(q, k, v, causal)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal)
     return flash_attention_fwd(q, k, v, causal=causal)[0]
+
+
+def _sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Attention of DTensors: batch rows and heads are independent, so their
+    shards are kept; a split sequence (the keys every query attends) or head
+    width is gathered first. K and V are laid out as the queries: the shard
+    of query heads [r H/n, (r+1) H/n) then holds KV heads [r KV/n, (r+1)
+    KV/n), which are the ones its heads read, provided KV splits as H does.
+    When it does not, K and V must come repeated to H heads (the model does
+    so, ``models.attention``); otherwise this raises."""
+    if not (is_dtensor(k) and is_dtensor(v)):
+        raise TypeError("flash_attention of DTensor queries needs DTensor keys and values")
+    pl = placements_keeping(q.placements, (0, 2))
+    splits = math.prod(q.device_mesh.size(i) for i, p in enumerate(pl) if p.is_shard() and p.dim == 2)
+    if k.shape[2] % splits:
+        raise ValueError(f"flash_attention: {k.shape[2]} KV heads cannot follow {q.shape[2]} query "
+                         f"heads split {splits} ways; repeat K and V to the query heads first")
+    out = flash_attention(local(q, pl), local(k, pl), local(v, pl), causal=causal)
+    return dtensor(out, q, pl)

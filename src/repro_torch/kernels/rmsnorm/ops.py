@@ -17,8 +17,12 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed.dtensors import (dtensor, grad_partial_where_sharded, is_dtensor, local,
+                                              placements_keeping)
+
 from .. import _build
 from .._costs import KernelCost, counted, nbytes
+from .._sharded import per_rank
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 H100_SMS = 132
@@ -76,6 +80,7 @@ def _bwd_cost(x, scale, dy, eps=1e-6) -> KernelCost:
     return KernelCost(0.0, 3 * nbytes(x) + 8 * d, 10 * n, "float32")
 
 
+@per_rank
 @counted("rmsnorm_fwd", _fwd_cost)
 def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """The forward alone: ``x * rsqrt(mean(x**2) + eps) * scale``, f32 statistics."""
@@ -98,6 +103,7 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torc
     return out.view(x.shape)
 
 
+@per_rank
 @counted("rmsnorm_bwd", _bwd_cost)
 def rmsnorm_bwd(
     x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6
@@ -159,7 +165,25 @@ def rmsnorm(
     ``block_rows`` and ``interpret`` are the reference's keywords, accepted
     and ignored: the kernel picks its rows per block from d and the row
     count, and ``interpret`` names the TPU kernel's interpreter, so a CUDA
-    tensor still runs the CUDA kernel."""
+    tensor still runs the CUDA kernel. A DTensor ``x`` (the sharded step)
+    runs the kernel on each rank's rows (``_sharded``)."""
+    if is_dtensor(x):
+        return _sharded(x, scale, eps)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return _RMSNorm.apply(x, scale.float(), eps)
     return rmsnorm_fwd(x, scale, eps)
+
+
+def _sharded(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """rmsnorm of a DTensor: the rows keep their shards; a last dimension
+    split over a mesh axis is gathered first, since the statistics sum over
+    it. The scale is gathered whole on every rank, and its local gradient is
+    a partial sum over each axis that splits the rows."""
+    from torch.distributed.tensor import Replicate
+
+    if not is_dtensor(scale):
+        raise TypeError("rmsnorm of a DTensor needs a DTensor scale on the same mesh")
+    pl = placements_keeping(x.placements, range(x.ndim - 1))
+    whole = (Replicate(),) * len(pl)
+    out = rmsnorm(local(x, pl), local(scale, whole, grad_partial_where_sharded(pl)), eps=eps)
+    return dtensor(out, x, pl)

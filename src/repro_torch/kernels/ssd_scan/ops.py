@@ -49,8 +49,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.dtensors import (dtensor, grad_partial_where_sharded, is_dtensor, local,
+                                              placements_keeping)
+
 from .. import _build
 from .._costs import KernelCost, counted, nbytes, op_type
+from .._sharded import per_rank
 from .ref import ssd_chunk_states_ref, ssd_scan_bwd_ref, ssd_scan_ref
 
 MAX_N = 256
@@ -127,6 +131,7 @@ def _bwd_cost(x, dt, A, Bm, Cm, dy, dstate_final=None, initial_state=None, **_) 
     return KernelCost(products, moved, products, op_type(x))
 
 
+@per_rank
 @counted("ssd_scan_fwd", _fwd_cost)
 def _scan_fwd(x, dt, A, Bm, Cm, initial_state, keep=False, block_q=128):
     """The forward kernels: ``(y, final_state)``, and with ``keep`` also
@@ -214,6 +219,7 @@ def bwd_scratch(b: int, s: int, h: int, g: int, p: int, n: int, dtype: torch.dty
     return out
 
 
+@per_rank
 @counted("ssd_scan_bwd", _bwd_cost)
 def ssd_scan_bwd(
     x: torch.Tensor,  # (B, S, H, P)
@@ -293,6 +299,7 @@ def ssd_scan_bwd(
     return dx, ddt, dA, dB, dC, dinit
 
 
+@per_rank
 @counted("ssd_scan_bwd", _bwd_cost)
 def _input_grads(x, dt, A, Bm, Cm, dy, dstate_final, initial_state, *, block_q, states, needs):
     """``_SSDScan``'s input gradients, in the inputs' dtypes (None where
@@ -372,8 +379,30 @@ def ssd_scan(
     on the CPU (autograd of the plain version). dt, A and the state are
     taken in f32. ``interpret``, the reference's keyword, is accepted and
     ignored: it names the TPU kernel's interpreter, so a CUDA tensor still
-    runs the CUDA kernel."""
+    runs the CUDA kernel. DTensors (the sharded step) run the kernels on
+    each rank's batch rows (``_sharded``)."""
+    if is_dtensor(x):
+        return _sharded(x, dt, A, Bm, Cm, block_q, initial_state)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, initial_state)):
         return _SSDScan.apply(x, dt, A, Bm, Cm, initial_state, block_q)
     return _scan_fwd(x, dt, A, Bm, Cm, initial_state, block_q=block_q)
+
+
+def _sharded(x, dt, A, Bm, Cm, block_q, initial_state):
+    """The scan of DTensors: the batch rows keep their shards. The state
+    pass carries each chunk's state into the next, so a split sequence (the
+    reference splits its chunk axis over "model") is gathered here, and so
+    are split heads (a head reads its group's B and C). A is gathered whole;
+    its local gradient is a partial sum over each axis that splits the
+    batch."""
+    from torch.distributed.tensor import Replicate
+
+    if not all(is_dtensor(t) for t in (dt, A, Bm, Cm)):
+        raise TypeError("ssd_scan of a DTensor x needs DTensors dt, A, B and C on the same mesh")
+    pl = placements_keeping(x.placements, (0,))
+    whole = (Replicate(),) * len(pl)
+    init = None if initial_state is None else local(initial_state, pl)
+    y, state = ssd_scan(local(x, pl), local(dt, pl), local(A, whole, grad_partial_where_sharded(pl)),
+                        local(Bm, pl), local(Cm, pl), block_q=block_q, initial_state=init)
+    return dtensor(y, x, pl), dtensor(state, x, pl)

@@ -14,8 +14,11 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed.dtensors import dtensor, is_dtensor, local, placements_keeping
+
 from .. import _build
 from .._costs import KernelCost, counted, nbytes
+from .._sharded import per_rank
 from .ref import swiglu_bwd_ref, swiglu_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,6 +55,7 @@ def _bwd_cost(gate, up, dh) -> KernelCost:
     return KernelCost(0.0, 5 * nbytes(gate), 14 * gate.numel(), "float32")
 
 
+@per_rank
 @counted("swiglu_fwd", _fwd_cost)
 def swiglu_fwd(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """The forward alone: ``silu(gate) * up`` in f32, in the gate's dtype."""
@@ -73,6 +77,7 @@ def swiglu_fwd(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@per_rank
 @counted("swiglu_bwd", _bwd_cost)
 def swiglu_bwd(
     gate: torch.Tensor, up: torch.Tensor, dh: torch.Tensor
@@ -120,7 +125,20 @@ def swiglu(
     ``block_rows`` and ``interpret`` are the reference's keywords, accepted
     and ignored: the kernel is elementwise over the flattened inputs, and
     ``interpret`` names the TPU kernel's interpreter, so a CUDA tensor still
-    runs the CUDA kernel."""
+    runs the CUDA kernel. DTensors (the sharded step) run the kernel on
+    each rank's shard (``_sharded``)."""
+    if is_dtensor(gate):
+        return _sharded(gate, up)
     if torch.is_grad_enabled() and (gate.requires_grad or up.requires_grad):
         return _SwiGLU.apply(gate, up)
     return swiglu_fwd(gate, up)
+
+
+def _sharded(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """swiglu of DTensors: elementwise, so every shard of the gate is kept
+    (pending sums are reduced) and the up projection is laid out as the
+    gate."""
+    if not is_dtensor(up):
+        raise TypeError("swiglu of a DTensor gate needs a DTensor up on the same mesh")
+    pl = placements_keeping(gate.placements, range(gate.ndim))
+    return dtensor(swiglu(local(gate, pl), local(up, pl)), gate, pl)

@@ -7,8 +7,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--json out.jsonl] [--jobs 4]
 
-The mesh is one H100 (``1x1:data,model``); the sharded step over more
-devices is not ported yet. A cell fits when its arguments and its peak of
+The mesh is one H100 (``1x1:data,model``); the dry run on the
+production meshes (16 x 16 and 2 x 16 x 16) is not ported yet. A cell fits when its arguments and its peak of
 new bytes (``per_device_bytes``) fit the card's memory: on the card
 ``torch.cuda.get_device_properties``, elsewhere the H100's 80 GB. Exit code
 0 only if every requested cell runs.
@@ -29,7 +29,7 @@ import torch
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.distributed.hlo_analysis import memory_analysis_dict
 from repro_torch.distributed.roofline import HBM_BYTES, RooflineTerms
-from repro_torch.launch.mesh import Mesh, mesh_name
+from repro_torch.launch.mesh import MULTI_POD_TODO, Mesh, mesh_name
 from repro_torch.models.config import SHAPES, cell_supported, get_shape
 from repro_torch.runtime.step_builder import build_step, model_flops_for_cell
 
@@ -48,13 +48,16 @@ def device_bytes() -> float:
 def run_cell(
     arch: str,
     shape_name: str,
+    multi_pod: bool = False,
     verbose: bool = True,
-    overrides: Optional[Dict[str, Any]] = None,
+    rules_overrides: Optional[Dict[str, Tuple[str, ...]]] = None,
 ) -> Dict[str, Any]:
-    """Lower one cell on the meta device; returns its record."""
+    """Lower one cell on the meta device; returns its record. The
+    reference's ``multi_pod`` picks its 2 x 16 x 16 production mesh, which
+    the port has not yet (``MULTI_POD_TODO``): True raises."""
+    if multi_pod:
+        raise NotImplementedError(f"run_cell(multi_pod=True): {MULTI_POD_TODO}")
     cfg = get_config(arch)
-    if overrides:
-        cfg = cfg.scaled(**overrides)
     shape = get_shape(shape_name)
     ok, why = cell_supported(cfg, shape)
     if not ok:
@@ -62,7 +65,7 @@ def run_cell(
 
     mesh = DRYRUN_MESH
     chips = mesh.size
-    lowered = build_step(cfg, shape, mesh).lower()
+    lowered = build_step(cfg, shape, mesh, rules_overrides=rules_overrides).lower()
     costs = lowered.costs
     mem = memory_analysis_dict(lowered)
     # the port's temp holds the step's new outputs, so the arguments and the

@@ -17,36 +17,43 @@ from repro_torch.distributed.hlo_analysis import memory_analysis_dict
 from repro_torch.distributed.hlo_costs import ModuleCosts
 from repro_torch.distributed.roofline import RooflineTerms
 from repro_torch.launch.dryrun import DRYRUN_MESH
-from repro_torch.launch.mesh import mesh_name
+from repro_torch.launch.mesh import MULTI_POD_TODO, mesh_name
 from repro_torch.models.config import SHAPES, ShapeConfig, get_shape
 from repro_torch.runtime.step_builder import build_step, model_flops_for_cell
 
 
 def run_iteration(
     arch: str,
-    shape: Union[str, ShapeConfig],
+    shape_name: Union[str, ShapeConfig],
     overrides: Optional[Dict[str, Any]] = None,
+    rules_overrides: Optional[Dict[str, Tuple[str, ...]]] = None,
+    multi_pod: bool = False,
     top: int = 8,
     verbose: bool = True,
-) -> Tuple[RooflineTerms, ModuleCosts, Dict[str, float]]:
+) -> Tuple[RooflineTerms, ModuleCosts, float]:
     """One cell (a shape name of ``SHAPES`` or a ``ShapeConfig``): its
-    terms, its costs and its memory analysis."""
+    terms, its costs and its bytes per device, as the reference counts
+    them: arguments + outputs - aliased + temp. ``multi_pod`` (the
+    reference's 2 x 16 x 16 mesh) is not ported yet: True raises."""
+    if multi_pod:
+        raise NotImplementedError(f"run_iteration(multi_pod=True): {MULTI_POD_TODO}")
     cfg = get_config(arch)
     if overrides:
         cfg = cfg.scaled(**overrides)
-    shape = get_shape(shape) if isinstance(shape, str) else shape
+    shape = get_shape(shape_name) if isinstance(shape_name, str) else shape_name
     mesh = DRYRUN_MESH
-    lowered = build_step(cfg, shape, mesh).lower()
+    lowered = build_step(cfg, shape, mesh, rules_overrides=rules_overrides).lower()
     costs = lowered.costs
     mem = memory_analysis_dict(lowered)
-    per_dev = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    per_dev = (mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
+               - mem["alias_size_in_bytes"] + mem["temp_size_in_bytes"])
     terms = RooflineTerms(
         arch=arch, shape=shape.name, mesh=mesh_name(mesh), chips=mesh.size,
         hlo_flops=costs.flops * mesh.size, hlo_bytes=costs.bytes * mesh.size,
         model_flops=model_flops_for_cell(cfg, shape),
     )
     if verbose:
-        print(f"--- {arch} x {shape.name} overrides={overrides} ---")
+        print(f"--- {arch} x {shape.name} overrides={overrides} rules={rules_overrides} ---")
         print(f"  HBM/dev: {per_dev / 1e9:.1f} GB (temp {mem['temp_size_in_bytes'] / 1e9:.3f} GB)"
               f"   {terms.render()}")
         print("  kernels: " + "; ".join(f"{k}: n={v.calls} flops={v.flops:.3e} bytes={v.bytes / 1e9:.2f}GB "
@@ -55,7 +62,7 @@ def run_iteration(
         by_bytes = sorted(costs.bytes_by_op.items(), key=lambda kv: -kv[1])[:top]
         for name, nbytes in by_bytes:
             print(f"    {nbytes / 1e9:9.2f} GB  {name} (n={costs.census[name]})")
-    return terms, costs, mem
+    return terms, costs, per_dev
 
 
 def main() -> None:

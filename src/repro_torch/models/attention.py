@@ -27,6 +27,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.dtensors import is_dtensor, rows_for_product
+from repro_torch.distributed.logical import constrain
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 from .layers import ParamSpec, apply_rope, head_rms_norm, rms_norm
@@ -42,7 +44,10 @@ def gqa_spec(
     n_kv_heads: int,
     head_dim: int,
     qk_norm: bool = False,
+    bias: bool = False,
 ) -> Dict[str, ParamSpec]:
+    """``bias`` is the reference's keyword, accepted and ignored there too:
+    no projection has a bias."""
     spec = {
         "wq": ParamSpec((d_model, n_heads, head_dim), ("embed", "heads", "head_dim")),
         "wk": ParamSpec((d_model, n_kv_heads, head_dim), ("embed", "kv_heads", "head_dim")),
@@ -109,7 +114,7 @@ def gqa_forward(
     params: Dict[str, torch.Tensor],
     x: torch.Tensor,  # (B, S, d_model)
     cfg: AttnConfig,
-    positions: torch.Tensor,  # (B, S)
+    positions: Optional[torch.Tensor] = None,  # (B, S); None: from cache_index
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_index: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
@@ -121,9 +126,13 @@ def gqa_forward(
 
     The cache tensors are updated in place and returned."""
     b, s, _ = x.shape
-    q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    positions = _positions(positions, b, s, cache_index, x.device)
+    x = rows_for_product(x)
+    # seq=None: attention needs the whole sequence (the sequence-parallel
+    # gather); the heads shard over "model" instead
+    q = constrain(_project(x, params["wq"]), ("batch", None, "heads", None))
+    k = constrain(_project(x, params["wk"]), ("batch", None, "kv_heads", None))
+    v = constrain(_project(x, params["wv"]), ("batch", None, "kv_heads", None))
     if cfg.qk_norm:
         q = head_rms_norm(params["q_norm"], q, cfg.norm_eps)
         k = head_rms_norm(params["k_norm"], k, cfg.norm_eps)
@@ -131,7 +140,7 @@ def gqa_forward(
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = flash_attention(q, k, v, causal=cfg.causal)
+        out = flash_attention(q, *_kv_for_query_heads(q, k, v), causal=cfg.causal)
     else:
         idx = int(cache_index) if cache_index is not None else 0
         ck, cv = cache["k"], cache["v"]
@@ -146,6 +155,35 @@ def gqa_forward(
             out = flash_attention(q, k, v, causal=cfg.causal)
     wo = params["wo"]
     return out.reshape(b, s, -1) @ wo.to(x.dtype).reshape(-1, wo.shape[-1]), cache
+
+
+def _positions(positions: Optional[torch.Tensor], b: int, s: int, cache_index: Optional[int],
+               device: torch.device) -> torch.Tensor:
+    """The given positions, or as the reference makes them: ``cache_index``
+    (0 without one) onwards, for every sequence."""
+    if positions is not None:
+        return positions
+    base = int(cache_index) if cache_index is not None else 0
+    return (base + torch.arange(s, device=device))[None, :].expand(b, s)
+
+
+def _kv_for_query_heads(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K and V as flash attention reads them for ``q``'s heads. The kernel
+    maps query head h to KV head h // groups itself, and on each rank's
+    shard too while the KV heads split as the query heads do. Where the
+    query heads shard over a mesh axis that the KV heads do not (too few KV
+    heads to divide it), K and V are repeated to the full head count and
+    sharded as the query heads, the reference's sharded gather
+    (``_chunked_attention``'s repeat); unsharded they are left as they are."""
+    if q.shape[2] == k.shape[2] or not is_dtensor(q):
+        return k, v
+    heads = [i for i, p in enumerate(q.placements) if p.is_shard() and p.dim == 2]
+    if all(k.placements[i] == q.placements[i] for i in heads):
+        return k, v
+    groups = q.shape[2] // k.shape[2]
+    return tuple(constrain(t.repeat_interleave(groups, dim=2), ("batch", None, "heads", None))
+                 for t in (k, v))
 
 
 def _decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, idx: int) -> torch.Tensor:
@@ -191,6 +229,7 @@ class MLAConfig:
 def _mla_qkv(params, x, cfg: MLAConfig, positions):
     """``(q_nope, q_pe, c_kv, k_pe)``: the per-head query halves (B, S, H, ·),
     the normed latent (B, S, rank) and the rotated shared key (B, S, 1, rope)."""
+    x = rows_for_product(x)
     cq = x @ params["wq_a"].to(x.dtype)
     cq = rms_norm({"scale": params["q_a_norm"]}, cq, cfg.norm_eps)
     q = _project(cq, params["wq_b"])
@@ -209,13 +248,14 @@ def mla_forward(
     params: Dict[str, torch.Tensor],
     x: torch.Tensor,  # (B, S, d_model)
     cfg: MLAConfig,
-    positions: torch.Tensor,  # (B, S)
+    positions: Optional[torch.Tensor] = None,  # (B, S); None: from cache_index
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_index: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Returns (out, cache), with ``gqa_forward``'s three modes; the latent
     and RoPE-key cache leaves are written in place."""
     b, s, _ = x.shape
+    positions = _positions(positions, b, s, cache_index, x.device)
     q_nope, q_pe, c_kv, k_pe = _mla_qkv(params, x, cfg, positions)
     if cache is not None:
         idx = int(cache_index) if cache_index is not None else 0

@@ -15,6 +15,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import Device, resolve_device
+from repro_torch.distributed.dtensors import embed_lookup, label_logit, rows_for_product
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.swiglu.ops import swiglu  # the model's swiglu is the op itself
 
@@ -182,12 +183,12 @@ def embedding_spec(vocab: int, d_model: int) -> Dict[str, ParamSpec]:
 
 def embed_tokens(params: Dict[str, torch.Tensor], tokens: torch.Tensor, compute_dtype: Any) -> torch.Tensor:
     # gather first, then cast: the same values as casting the whole table
-    return params["embedding"][tokens].to(compute_dtype)
+    return embed_lookup(params["embedding"], tokens).to(compute_dtype)
 
 
 def unembed_logits(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """(B, S, d) -> (B, S, V_padded)."""
-    return x @ params["embedding"].to(x.dtype).T
+    return rows_for_product(x) @ params["embedding"].to(x.dtype).T
 
 
 def cross_entropy_from_logits(
@@ -201,15 +202,15 @@ def cross_entropy_from_logits(
     padded vocabulary rows) are masked with -1e30 first. With
     ``reduce=False``, the per-token (masked) NLL. The label's logit is
     gathered: the reference's one-hot contraction sums it with zeros only,
-    which gives the same value."""
+    which gives the same value (a DTensor's is that contraction:
+    ``label_logit``)."""
     logits = logits.float()
     if valid_vocab and valid_vocab < logits.shape[-1]:
         viota = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(viota < valid_vocab, logits, -1e30)
     m = logits.amax(dim=-1, keepdim=True)
     lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m.squeeze(-1)
-    ll = logits.gather(-1, labels.long()[..., None]).squeeze(-1)
-    nll = lse - ll
+    nll = lse - label_logit(logits, labels)
     if mask is not None:
         nll = nll * mask
     if not reduce:
@@ -234,6 +235,7 @@ def mlp_spec(d_model: int, d_ff: int) -> Dict[str, ParamSpec]:
 
 def mlp_forward(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
+    x = rows_for_product(x)
     g = x @ params["gate"].to(dt)
     u = x @ params["up"].to(dt)
     return swiglu(g, u) @ params["down"].to(dt)
@@ -247,3 +249,10 @@ def mlp_forward(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tenso
 def pad_vocab(vocab: int, multiple: int = 256) -> int:
     """Pad embedding tables to a multiple of 256 rows, as the reference does."""
     return ((vocab + multiple - 1) // multiple) * multiple
+
+
+def causal_mask(s_q: int, s_k: int, offset: int = 0, device: Device = "cuda") -> torch.Tensor:
+    """Boolean (s_q, s_k) mask; query i attends to keys <= i + offset."""
+    q = torch.arange(s_q, device=resolve_device(device))[:, None] + offset
+    k = torch.arange(s_k, device=q.device)[None, :]
+    return k <= q

@@ -37,6 +37,9 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.dtensors import replicated, rows_for_product
+from repro_torch.distributed.logical import constrain
+
 from .layers import ParamSpec, swiglu
 
 
@@ -122,14 +125,18 @@ def moe_forward(
     dt = x.dtype
     b, s, d = x.shape
     nt, k, ne = b * s, cfg.top_k, cfg.n_experts
-    xf = x.reshape(nt, d)
+    xf = rows_for_product(x).reshape(nt, d)
     top_w, top_e, probs = route(xf, params["router"], cfg)
+    # the routing's bookkeeping runs alike on every rank of the sharded step;
+    # the experts' buffers built from it shard over "experts"
+    top_w, top_e = replicated(top_w), replicated(top_e)
 
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e
     me = probs.mean(dim=0)
     flat_e = top_e.reshape(-1)  # (n,), token-major: assignment i is token i // k
-    ce = torch.zeros(ne, dtype=torch.float32, device=x.device).index_add_(
-        0, flat_e, torch.full(flat_e.shape, 1.0 / (nt * k), dtype=torch.float32, device=x.device))
+    # the buffers updated in place are made from the routing's own tensors
+    # (``new_*``), so that in the sharded step they are DTensors too
+    ce = probs.new_zeros(ne).index_add_(0, flat_e, probs.new_full(flat_e.shape, 1.0 / (nt * k)))
     aux = cfg.router_aux_weight * ne * (me * ce).sum()
 
     n = flat_e.shape[0]
@@ -146,9 +153,13 @@ def moe_forward(
 
     val = xf[:, None, :].expand(nt, k, d).reshape(n, d)
     buf = x.new_zeros((ne * cap + 1, d)).index_put((dest,), val)[:-1].view(ne, cap, d)
+    buf = constrain(buf, ("experts", None, None))
+
+    # expert computation (expert axis sharded over "model")
     g = torch.bmm(buf, params["w_gate"].to(dt))
     u = torch.bmm(buf, params["w_up"].to(dt))
     eo = torch.bmm(swiglu(g, u), params["w_down"].to(dt))
+    eo = constrain(eo, ("experts", None, None))
 
     w = top_w.reshape(-1).to(dt) * keep.to(dt)
     per_assign = (eo.reshape(ne * cap, d)[row] * w[:, None]).view(nt, k, d)
@@ -172,7 +183,7 @@ def _position_in_expert_blocked(flat_e: torch.Tensor, n_experts: int, blocks: in
     e2 = flat_e.reshape(blocks, nb)
     order = torch.argsort(e2, dim=1, stable=True)
     sorted_e = torch.gather(e2, 1, order)
-    counts = torch.zeros((blocks, n_experts), dtype=torch.long, device=flat_e.device)
+    counts = e2.new_zeros((blocks, n_experts), dtype=torch.long)
     counts.scatter_add_(1, e2, torch.ones_like(e2))
     starts = torch.cumsum(counts, dim=1) - counts  # exclusive prefix per block
     pos_sorted = torch.arange(nb, device=flat_e.device)[None, :] - torch.gather(starts, 1, sorted_e)

@@ -20,6 +20,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.dtensors import rows_for_product
+from repro_torch.distributed.logical import constrain
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
 from .layers import ParamSpec, rms_norm
@@ -83,8 +85,29 @@ def ssd_chunked(
 
     The scan runs in f32 throughout. At bf16 compute the reference rounds its
     scores and carried states to bf16 before its einsums; the op rounds once,
-    at y (ROADMAP Queue C)."""
-    return ssd_scan(x, dt, A, Bm, Cm, block_q=chunk, initial_state=initial_state)
+    at y (ROADMAP Queue C).
+
+    The reference's ``("batch", "chunks", ...)`` constraints on its inputs
+    and on y hold here on the chunked view of the sequence. Its chunk
+    scores, chunk states and carried states (``cb``, ``chunk_states``,
+    ``prev_states``) live only inside the ssd_scan kernels, whose wrapper
+    gathers a split chunk axis before the state pass crosses it."""
+    q = min(chunk, x.shape[1])
+    x, dt, Bm, Cm = (_constrain_chunks(t, q) for t in (x, dt, Bm, Cm))
+    y, state = ssd_scan(x, dt, A, Bm, Cm, block_q=chunk, initial_state=initial_state)
+    return _constrain_chunks(y, q), state
+
+
+def _constrain_chunks(t: torch.Tensor, q: int) -> torch.Tensor:
+    """``t`` (B, S, ...) constrained as its (B, S / q, q, ...) view with the
+    chunk axis "chunks", then viewed back. A sequence that is not a multiple
+    of q (the reference pads it; the kernel needs no padding) is left as it
+    is."""
+    b, s = t.shape[:2]
+    if s % q:
+        return t
+    chunks = t.view(b, s // q, q, *t.shape[2:])
+    return constrain(chunks, ("batch", "chunks") + (None,) * (t.ndim - 1)).view(t.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +166,7 @@ def mamba2_forward(
     b, s, _ = x.shape
     h, p, n, g = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
 
-    zxbcdt = x @ params["in_proj"].to(dt_)
+    zxbcdt = constrain(rows_for_product(x) @ params["in_proj"].to(dt_), ("batch", None, "mlp"))
     z, xbc, dt_raw = torch.split(zxbcdt, [cfg.d_inner, cfg.d_xbc, h], dim=-1)
     conv_tail = state["conv"] if state is not None else None
     xbc, new_tail = _causal_conv(xbc, params["conv_w"].to(dt_), params["conv_b"].to(dt_), conv_tail)

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.device import Device, resolve_device
+from repro_torch.distributed.logical import constrain
 
 from .attention import (
     AttnConfig,
@@ -239,18 +240,19 @@ def _dense_block(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer: ``(x, aux)``, aux the MoE layer's load-balancing loss (f32
     zero for an MLP layer)."""
+    x = constrain(x, ("batch", "seq", None))
     h = rms_norm(lp["attn_norm"], x, cfg.norm_eps)
     if cfg.attention == "mla":
         a, _ = mla_forward(lp["attn"], h, mla_config(cfg), positions, cache, cache_index)
     else:
         a, _ = gqa_forward(lp["attn"], h, attn_config(cfg), positions, cache, cache_index)
-    x = x + a
+    x = x + constrain(a, ("batch", "seq", None))
     h = rms_norm(lp["mlp_norm"], x, cfg.norm_eps)
     if cfg.family == "moe":
         m, aux = moe_forward(lp["moe"], h, moe_config(cfg))
     else:
         m, aux = mlp_forward(lp["mlp"], h), torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + m, aux
+    return x + constrain(m, ("batch", "seq", None)), aux
 
 
 def _mamba_block(
@@ -262,6 +264,7 @@ def _mamba_block(
 ) -> torch.Tensor:
     """One [rmsnorm -> mamba2 -> +res] layer; a given state (views into the
     stacked cache) is replaced in place by the new one."""
+    x = constrain(x, ("batch", "seq", None))
     h = rms_norm(lp["norm"], x, cfg.norm_eps)
     if decode:
         m, new_state = mamba2_decode_step(lp["mamba"], h, ssm_config(cfg), state)
@@ -270,7 +273,7 @@ def _mamba_block(
     if state is not None:
         for key in ("ssm", "conv"):
             state[key].copy_(new_state[key])
-    return x + m
+    return x + constrain(m, ("batch", "seq", None))
 
 
 def _scan_mamba(
@@ -365,6 +368,7 @@ def forward(
         x = embed_tokens(params["embed"], tokens, cfg.dtype)
     else:
         raise ValueError("forward needs tokens or embeds")
+    x = constrain(x, ("batch", "seq", None))
     b, s = x.shape[:2]
     base = cache_index if cache_index is not None else 0
     positions = (base + torch.arange(s, device=x.device))[None, :].expand(b, s)
@@ -390,9 +394,10 @@ def forward(
                 x, a = _dense_block(lp, x, cfg, positions, lcache, cache_index)
             aux = aux + a
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    x = constrain(x, ("batch", "seq", None))
     if return_hidden:
         return x, cache, aux
-    return unembed_logits(params["embed"], x), cache, aux
+    return constrain(unembed_logits(params["embed"], x), ("batch", "seq", "vocab")), cache, aux
 
 
 def train_loss(
@@ -420,7 +425,7 @@ def train_loss(
             else mask.float())
 
     def chunk_sums(x_c, labels_c, mask_c):
-        logits_c = unembed_logits(params["embed"], x_c)
+        logits_c = constrain(unembed_logits(params["embed"], x_c), ("batch", None, "vocab"))
         nll = cross_entropy_from_logits(logits_c, labels_c, mask_c, valid_vocab=cfg.vocab,
                                         reduce=False)
         return nll.sum(), mask_c.sum()

@@ -29,10 +29,11 @@ from repro_torch.kernels.int8_quant.ops import int8_dequantize, int8_quantize
 from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
 
 
-def ef_quantize_tree(grads: Any, residual: Any) -> Tuple[Any, Any]:
+def ef_quantize_tree(grads: Any, residual: Any, interpret: bool = True) -> Tuple[Any, Any]:
     """Quantize (grads + residual) to int8 resolution; returns
     (quantized_grads, new_residual). Shapes and dtypes preserved; the
-    residual is f32."""
+    residual is f32. ``interpret``, the reference's keyword, is accepted
+    and ignored: no kernel runs here, in the reference either."""
 
     def one(g: torch.Tensor, r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         g32 = g.float() + r
@@ -56,19 +57,24 @@ def init_residual(params: Any) -> Any:
 # ---------------------------------------------------------------------------
 
 
-def compress_tree(tree: Any) -> Dict[str, Any]:
+def compress_tree(tree: Any, interpret: bool = True) -> Dict[str, Any]:
+    """Every leaf through ``int8_quantize``. ``interpret``, the reference's
+    keyword, goes to the wrapper, which accepts and ignores it: a CUDA leaf
+    runs the CUDA kernel either way."""
     payload = []
     for leaf in tree_leaves(tree):
-        q, s = int8_quantize(leaf)
+        q, s = int8_quantize(leaf, interpret=interpret)
         payload.append({"q": q, "s": s, "n": leaf.numel(), "shape": tuple(leaf.shape),
                         "dtype": str(leaf.dtype).replace("torch.", "")})
     return {"treedef": tree_map(lambda _: None, tree), "payload": payload}
 
 
-def decompress_tree(packed: Dict[str, Any]) -> Any:
+def decompress_tree(packed: Dict[str, Any], interpret: bool = True) -> Any:
+    """Every leaf through ``int8_dequantize`` (``interpret`` as in
+    ``compress_tree``)."""
     leaves = [
         int8_dequantize(item["q"], item["s"], n=item["n"], shape=tuple(item["shape"]),
-                        out_dtype=getattr(torch, item["dtype"]))
+                        out_dtype=getattr(torch, item["dtype"]), interpret=interpret)
         for item in packed["payload"]
     ]
     return tree_unflatten(packed["treedef"], leaves)

@@ -11,8 +11,15 @@ kind, nested as the reference's ``ShapeDtypeStruct`` tree.
 ``build_step`` gives a cell's ``StepBundle``, the single entry point of the
 dry run: ``lower()`` runs the step once on the meta device (nothing is
 allocated) under the cost counter and returns what the dry run reads;
-calling the bundle runs the step on its mesh's device. Only the mesh of one
-device runs so far.
+calling the bundle runs the step on its mesh, under the logical scope of
+its sharding rules. On a mesh of more than one device (a ``DeviceMesh``
+over a process group, ``launch.mesh.make_mesh``) the train step runs on
+DTensors: the params, the AdamW moments and the batch are placed by the
+rules' specs (``sharding.distribute_tree``), the model's ``constrain``
+calls redistribute its activations, the kernel wrappers run on each rank's
+shards, and the step returns DTensors. Prefill, encoder and decode steps
+over such a mesh, and ``lower()`` of any step on one, are not ported yet
+(``SHARDED_TODO``).
 """
 from __future__ import annotations
 
@@ -23,7 +30,19 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.distributed.hlo_costs import ModuleCosts, counting, tensors_in
-from repro_torch.launch.mesh import SHARDED_STEP_TODO, Mesh
+from repro_torch.distributed.dtensors import is_dtensor
+from repro_torch.distributed.logical import logical_sharding_scope
+from repro_torch.distributed.sharding import (
+    PartitionSpec,
+    ShardingRules,
+    batch_specs,
+    distribute_tree,
+    make_rules,
+    opt_state_specs,
+    param_specs,
+    shardings_from_specs,
+)
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.layers import abstract_params, tree_leaves, tree_map, tree_unflatten, unembed_logits
 from repro_torch.models.transformer import cache_spec, forward, model_spec, train_loss
@@ -55,9 +74,15 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
     raise ValueError(shape.kind)
 
 
+SHARDED_TODO = ("prefill, encoder and decode steps over a mesh of more than one device, and the "
+                "dry run (lower) on such a mesh, are not ported yet: ROADMAP.md, Queue A 10b.2")
+
+
 def make_grad_step(cfg: ModelConfig) -> Callable[..., Tuple[Any, Dict[str, torch.Tensor]]]:
     """Gradient-only step: ``(grads, {"loss", "ce", "aux"})``. The params are
-    not modified; each gradient has its parameter's shape and dtype."""
+    not modified; each gradient has its parameter's shape and dtype, and a
+    DTensor parameter's gradient its placements (pending sums reduced, as
+    AdamW's in-place updates need)."""
 
     def grad_step(params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
@@ -65,6 +90,9 @@ def make_grad_step(cfg: ModelConfig) -> Callable[..., Tuple[Any, Dict[str, torch
         with torch.enable_grad():
             loss, parts = train_loss(live, cfg, batch)
             grads = torch.autograd.grad(loss, leaves)
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if is_dtensor(g) and tuple(g.placements) != tuple(p.placements) else g
+                 for p, g in zip(leaves, grads)]
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
         return tree_unflatten(params, list(grads)), metrics
 
@@ -159,25 +187,33 @@ class LoweredStep:
 
 @dataclass
 class StepBundle:
-    """Everything needed to run or lower one (arch, shape, mesh) cell. The
-    reference's bundle also carries the sharding rules and the params'
-    specs; on the one mesh the port runs (one device) they shard nothing,
-    so they come with the sharded step."""
+    """Everything needed to run or lower one (arch, shape, mesh) cell: the
+    reference's bundle (the sharding rules and the params' specs among it),
+    and the port's own fields after ``kind``."""
 
     cfg: ModelConfig
     shape: ShapeConfig
     mesh: Mesh
+    rules: ShardingRules
     fn: Callable  # the step
     in_specs: Tuple[Any, ...]  # meta tensors (and the decode index), in call order
+    param_pspecs: Any
     kind: str
     donated: Tuple[int, ...] = ()  # the arguments the step updates in place
     donate: bool = True  # False: ``__call__`` copies those first
+    # each argument's placements, read on a mesh of more than one device
+    in_shardings: Tuple[Any, ...] = ()
+
+    def _spec_fn(self) -> Callable[..., PartitionSpec]:
+        return self.rules.spec_for
 
     def lower(self) -> LoweredStep:
         """Run the step once on the meta device, counted."""
+        if self.mesh.size != 1:
+            raise NotImplementedError(f"lower() on mesh {self.mesh.axis_sizes}: {SHARDED_TODO}")
         args = self.in_specs
         t0 = time.perf_counter()
-        with counting() as costs:
+        with counting() as costs, logical_sharding_scope(self._spec_fn()):
             out = self.fn(*args)
         seconds = time.perf_counter() - t0
         arg_ts, out_ts = tensors_in(args), tensors_in(out)
@@ -192,8 +228,10 @@ class StepBundle:
         return LoweredStep(costs, memory, seconds)
 
     def __call__(self, *args: Any) -> Any:
-        """Run the step on the mesh's device; with ``donate=False`` the
-        arguments it would update in place are copied first."""
+        """Run the step on the mesh; with ``donate=False`` the arguments it
+        would update in place are copied first. On a mesh of more than one
+        device the arguments (whole tensors, or DTensors) are placed by
+        ``in_shardings`` first and the outputs are DTensors."""
         dev = self.mesh.device
         if dev is None:
             raise ValueError("this mesh has no device: a dry-run mesh can be lowered, not run")
@@ -202,7 +240,16 @@ class StepBundle:
                 raise ValueError(f"the step runs on {dev}, got a tensor on {t.device}")
         if not self.donate:
             args = tuple(_clone(a) if i in self.donated else a for i, a in enumerate(args))
-        return self.fn(*args)
+        with logical_sharding_scope(self._spec_fn()):
+            if self.mesh.device_mesh is None:
+                return self.fn(*args)
+            from torch.distributed.tensor.experimental import implicit_replication
+
+            args = tuple(distribute_tree(self.mesh, a, pl) for a, pl in zip(args, self.in_shardings))
+            # the step's own tensors (positions, masks, AdamW's scalars) are
+            # the same on every rank: replicated where they meet DTensors
+            with implicit_replication():
+                return self.fn(*args)
 
 
 def _clone(tree: Any) -> Any:
@@ -224,23 +271,34 @@ def build_step(
     shape: ShapeConfig,
     mesh: Mesh,
     opt_cfg: Optional[AdamWConfig] = None,
+    rules_overrides: Optional[Dict[str, Tuple[str, ...]]] = None,
     donate: bool = True,
 ) -> StepBundle:
     """The step of one cell on ``mesh``. The port's steps update params,
     moments and cache in place (donated); ``donate=False`` copies them
-    first. A mesh of more than one device raises: the sharded step (and
-    with it the reference's ``rules_overrides``) is not ported yet."""
-    if mesh.size != 1:
-        raise NotImplementedError(f"build_step on mesh {mesh.axis_sizes}: {SHARDED_STEP_TODO}")
-    p_abstract = abstract_params(model_spec(cfg), cfg.param_dtype)
+    first. Over a mesh of more than one device only the train step is
+    ported (``SHARDED_TODO``)."""
+    rules = make_rules(mesh, rules_overrides)
+    spec_tree = model_spec(cfg)
+    p_abstract = abstract_params(spec_tree, cfg.param_dtype)
+    p_pspecs = param_specs(rules, spec_tree)
     ins = input_specs(cfg, shape)
+    if mesh.size != 1 and shape.kind != "train":
+        raise NotImplementedError(f"build_step({shape.kind!r}) on mesh {mesh.axis_sizes}: "
+                                  f"{SHARDED_TODO}")
 
-    def bundle(fn: Callable, in_specs: Tuple[Any, ...], kind: str, donated: Tuple[int, ...]):
-        return StepBundle(cfg, shape, mesh, fn, in_specs, kind, donated, donate)
+    def bundle(fn: Callable, in_specs: Tuple[Any, ...], kind: str, donated: Tuple[int, ...],
+               in_shardings: Tuple[Any, ...] = ()):
+        return StepBundle(cfg, shape, mesh, rules, fn, in_specs, p_pspecs, kind, donated, donate,
+                          in_shardings)
 
     if shape.kind == "train":
         step = make_train_step(cfg, opt_cfg or AdamWConfig())
-        return bundle(step, (p_abstract, init_state(p_abstract), _meta(ins["batch"])), "train", (0, 1))
+        in_shardings = (shardings_from_specs(mesh, p_pspecs),
+                        shardings_from_specs(mesh, opt_state_specs(rules, spec_tree, None)),
+                        shardings_from_specs(mesh, batch_specs(rules, ins["batch"])))
+        return bundle(step, (p_abstract, init_state(p_abstract), _meta(ins["batch"])), "train",
+                      (0, 1), in_shardings)
     if shape.kind == "prefill":
         if not cfg.has_decode:
             return bundle(make_encoder_step(cfg), (p_abstract, _meta(ins["batch"])), "prefill", ())

@@ -2,7 +2,9 @@
 formulas: ``model_flops_for_cell`` in every (arch x shape) cell, the
 roofline terms with the H100's constants in place of the TPU's, the
 roofline table's layout, the dry run at full width on the meta device for
-one cell of each family, and the meshes it cannot run on.
+one cell of each family, and the production meshes, which it cannot run
+on yet (``run_cell(..., multi_pod=True)`` and ``lower()`` past one device
+raise).
 """
 import json
 import os
@@ -21,6 +23,7 @@ from repro.launch import roofline_table as ref_table  # noqa: E402
 from repro.models.config import get_shape as ref_get_shape  # noqa: E402
 from repro.runtime.step_builder import model_flops_for_cell as ref_model_flops  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, get_smoke_config  # noqa: E402
+from repro_torch.distributed.hlo_analysis import memory_analysis_dict  # noqa: E402
 from repro_torch.distributed import roofline  # noqa: E402
 from repro_torch.launch import roofline_table  # noqa: E402
 from repro_torch.launch.dryrun import DRYRUN_MESH, run_cell  # noqa: E402
@@ -162,11 +165,20 @@ def test_launch_modules_set_no_environment_variable():
 
 
 def test_production_mesh_and_sharded_step_raise():
-    with pytest.raises(NotImplementedError, match="sharded step"):
-        make_production_mesh()
+    # the production meshes and the dry run on them are Queue A 10b.2's
+    for multi_pod in (False, True):
+        with pytest.raises(NotImplementedError, match="10b.2"):
+            make_production_mesh(multi_pod=multi_pod)
+    with pytest.raises(NotImplementedError, match="10b.2"):
+        run_cell("qwen3-0.6b", "train_4k", True)  # the third parameter is multi_pod, as in the reference
+    with pytest.raises(NotImplementedError, match="10b.2"):
+        run_iteration("qwen3-0.6b", "train_4k", multi_pod=True, verbose=False)
+    # the train step builds over a described mesh of 512 devices; lowering it is 10b.2's
     wide = type(DRYRUN_MESH)(("pod", "data", "model"), (2, 16, 16))
-    with pytest.raises(NotImplementedError, match="sharded step"):
-        build_step(get_config("qwen3-0.6b"), get_shape("train_4k"), wide)
+    bundle = build_step(get_config("qwen3-0.6b"), get_shape("train_4k"), wide)
+    assert bundle.kind == "train" and bundle.rules.mesh_shape == {"pod": 2, "data": 16, "model": 16}
+    with pytest.raises(NotImplementedError, match="10b.2"):
+        bundle.lower()
 
 
 def test_a_dry_run_mesh_is_lowered_not_run():
@@ -178,10 +190,14 @@ def test_a_dry_run_mesh_is_lowered_not_run():
 
 def test_perf_iter_remat_direction():
     shape = ShapeConfig("train_2x2048", 2048, 2, "train")  # the activations outweigh AdamW here
-    _, nothing, mem_n = run_iteration("qwen3-0.6b", shape, {"remat_policy": "nothing"}, verbose=False)
-    _, dots, mem_d = run_iteration("qwen3-0.6b", shape, {"remat_policy": "dots"}, verbose=False)
+    _, nothing, dev_n = run_iteration("qwen3-0.6b", shape, {"remat_policy": "nothing"}, verbose=False)
+    _, dots, dev_d = run_iteration("qwen3-0.6b", shape, {"remat_policy": "dots"}, verbose=False)
     assert nothing.flops > dots.flops
-    assert mem_n["temp_size_in_bytes"] < mem_d["temp_size_in_bytes"]
+    assert dev_n < dev_d  # per-device bytes, as the reference's: arguments + outputs - aliased + temp
+    mem = memory_analysis_dict(build_step(get_config("qwen3-0.6b").scaled(remat_policy="dots"), shape,
+                                          DRYRUN_MESH).lower())
+    assert dev_d == (mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
+                     - mem["alias_size_in_bytes"] + mem["temp_size_in_bytes"])
 
 
 @pytest.mark.parametrize("donate", [True, False])

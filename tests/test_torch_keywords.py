@@ -1,4 +1,15 @@
-"""The port's kernel wrappers take the reference's keywords.
+"""The port's public functions take the reference's parameters, and its
+kernel wrappers the reference's keywords.
+
+Every public function of every module of ``repro`` (``launch/`` included)
+has a function of the same name in the port's module of the same name,
+whose ``inspect.signature`` lists the reference's parameters in order, with
+the same names, kinds and defaults. The port may add trailing parameters
+with defaults named ``device``, ``params`` or ``initial_state``, and call a
+``jax.random`` key ``generator`` (ROADMAP.md, Queue C); ``KNOWN`` lists the
+differences that stand, each with its reason. Two of Queue C's repairs are
+also held by value: the compression functions' ``interpret`` (the
+reference's payload under True and False) and ``models.layers.causal_mask``.
 
 Each of the nine public wrappers of ``repro_torch.kernels.*.ops`` accepts
 every parameter of its counterpart in ``repro.kernels.*.ops``, with the same
@@ -8,7 +19,12 @@ tensors with the same keywords (tiling hints off their defaults,
 to the tolerance of that wrapper's parity test in ``test_torch_kernels.py``,
 ``test_torch_int8.py`` or ``test_torch_ssd.py``.
 """
+import importlib
+import importlib.util
 import inspect
+import os
+import pkgutil
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -191,3 +207,134 @@ def test_interpret_keeps_cuda_tensors_on_the_kernels():
         call()
         torch.cuda.synchronize()
         assert getattr(mod, counter) > before, (mod.__name__, counter)
+
+
+# ---------------------------------------------------------------------------
+# Every public function of every module pair
+# ---------------------------------------------------------------------------
+
+EXTRA_OK = ("device", "params", "initial_state")  # trailing, with a default
+RENAMED_OK = {"key": "generator"}
+# (module, function): why the difference stands
+KNOWN = {
+    ("distributed.hlo_analysis", "collective_stats"):
+        "the collective statistics come with the production meshes (ROADMAP.md, Queue A 10b.2)",
+    ("distributed.hlo_costs", "analyze_module"):
+        "parses XLA's HLO text; the port has no HLO and counts aten ops (count_costs)",
+    ("launch.roofline_table", "render_table"):
+        "one H100's table (mesh '1x1', a fits column) until the production meshes (Queue A 10b.2)",
+    ("launch.roofline_table", "pick_hillclimb"):
+        "one H100's table (mesh_filter) until the production meshes (Queue A 10b.2)",
+    ("models.layers", "swiglu"):
+        "the kernel op itself: its keyword-only block_rows and interpret are the reference kernel's",
+}
+# ``repro.launch`` has no ``__init__``, so the walk does not reach it
+LAUNCH = ["repro.launch." + n for n in ("dryrun", "mesh", "perf_iter", "roofline_table")]
+SIMPLE = (bool, int, float, str, tuple, type(None))
+
+
+def _module_pairs():
+    import repro
+
+    names = [m.name for m in pkgutil.walk_packages(repro.__path__, "repro.")] + LAUNCH
+    pairs = []
+    for name in sorted(names):
+        port = "repro_torch." + name[len("repro."):]
+        if name.endswith("__main__") or importlib.util.find_spec(port) is None:
+            continue  # kernels/*/kernel.py and core/jax_backend: their counterparts are csrc/*.cu, torch_backend
+        pairs.append(name[len("repro."):])
+    return pairs
+
+
+def _same_default(port, ref):
+    if ref is jnp.float32:  # a dtype default: the same type in each framework
+        return port is torch.float32
+    return port == ref or (port is inspect.Parameter.empty and ref is inspect.Parameter.empty)
+
+
+def _signature_faults(ref_fn, port_fn):
+    rp = list(inspect.signature(ref_fn).parameters.values())
+    pp = list(inspect.signature(port_fn).parameters.values())
+    faults = []
+    for i, r in enumerate(rp):
+        if i >= len(pp):
+            return faults + [f"lacks {r.name!r}"]
+        p = pp[i]
+        if p.name != r.name and RENAMED_OK.get(r.name) != p.name:
+            faults.append(f"parameter {i} is {p.name!r}, the reference's {r.name!r}")
+        if p.kind != r.kind:
+            faults.append(f"{r.name}: kind {p.kind.name}, the reference's {r.kind.name}")
+        if (p.default is inspect.Parameter.empty) != (r.default is inspect.Parameter.empty):
+            faults.append(f"{r.name}: a default on one side only")
+        elif isinstance(r.default, SIMPLE) and not _same_default(p.default, r.default):
+            faults.append(f"{r.name}: default {p.default!r}, the reference's {r.default!r}")
+    for p in pp[len(rp):]:
+        if p.name not in EXTRA_OK or p.default is inspect.Parameter.empty:
+            faults.append(f"adds {p.name!r}")
+    return faults
+
+
+@pytest.mark.parametrize("module", _module_pairs())
+def test_public_functions_take_the_reference_parameters(module):
+    with mock.patch.dict(os.environ):  # the reference's launch modules set XLA_FLAGS when imported
+        ref = importlib.import_module("repro." + module)
+    port = importlib.import_module("repro_torch." + module)
+    faults = {}
+    for name, ref_fn in vars(ref).items():
+        if name.startswith("_") or not inspect.isfunction(ref_fn) or ref_fn.__module__ != ref.__name__:
+            continue
+        if (module, name) in KNOWN:
+            continue
+        port_fn = getattr(port, name, None)
+        if not callable(port_fn):
+            faults[name] = ["missing"]
+            continue
+        found = _signature_faults(ref_fn, port_fn)
+        if found:
+            faults[name] = found
+    assert not faults, f"repro_torch.{module}: {faults}"
+
+
+def test_the_module_walk_reaches_launch_and_the_step_builder():
+    pairs = _module_pairs()
+    assert {"launch.dryrun", "launch.mesh", "launch.perf_iter", "launch.roofline_table",
+            "runtime.step_builder", "optim.compression", "models.attention", "models.layers"} <= set(pairs)
+    assert len(pairs) >= 80
+
+
+@pytest.mark.parametrize("interpret", [True, False])
+def test_compression_takes_interpret_and_gives_the_reference_payload(interpret):
+    # the reference runs its Pallas kernels on the CPU only in interpret mode,
+    # so its payload is always the interpret=True one; the port's, under
+    # either value, must equal it
+    from repro.optim import compression as j_compression
+    from repro_torch.optim import compression
+
+    tree = {"b": _normal(3, (7,)), "w": _normal(4, (30, 100), 0.01)}
+    got = compression.compress_tree({k: _t(v) for k, v in tree.items()}, interpret=interpret)
+    want = j_compression.compress_tree({k: jnp.asarray(v) for k, v in tree.items()}, interpret=True)
+    for g, w in zip(got["payload"], want["payload"]):
+        np.testing.assert_array_equal(g["q"].numpy(), np.asarray(w["q"]))
+        np.testing.assert_array_equal(g["s"].numpy(), np.asarray(w["s"]))
+        assert (g["n"], tuple(g["shape"]), g["dtype"]) == (w["n"], tuple(w["shape"]), w["dtype"])
+    back = compression.decompress_tree(got, interpret=interpret)
+    want_back = j_compression.decompress_tree(want, interpret=True)
+    for k in tree:
+        np.testing.assert_array_equal(back[k].numpy(), np.asarray(want_back[k]))
+    grads = {k: _t(v) for k, v in tree.items()}
+    qs, rs = compression.ef_quantize_tree(grads, compression.init_residual(grads), interpret=interpret)
+    jqs, jrs = j_compression.ef_quantize_tree({k: jnp.asarray(v) for k, v in tree.items()},
+                                              j_compression.init_residual(tree), interpret=True)
+    for k in tree:
+        np.testing.assert_allclose(qs[k].numpy(), np.asarray(jqs[k]), rtol=1e-6, atol=1e-9)
+        np.testing.assert_allclose(rs[k].numpy(), np.asarray(jrs[k]), rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("s_q,s_k,offset", [(4, 4, 0), (3, 7, 4), (5, 2, 0), (1, 9, 8), (6, 6, -2)])
+def test_causal_mask_is_the_reference_mask(s_q, s_k, offset):
+    from repro.models.layers import causal_mask as j_causal_mask
+    from repro_torch.models.layers import causal_mask
+
+    got = causal_mask(s_q, s_k, offset, device="cpu")
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_causal_mask(s_q, s_k, offset)))

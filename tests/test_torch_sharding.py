@@ -7,7 +7,9 @@ random shapes, axes and mesh sizes, and for all ten archs on the (1, 1),
 cache specs leaf by leaf, built directly from ``ShardingRules`` as the
 reference's test builds them (no devices needed). Also the port's
 ``abstract_params`` and ``cache_spec`` against the reference's, the DTensor
-placements, the logical constraint and the meshes that raise.
+placements, the logical constraint (a no-op on plain tensors, a
+redistribution of a DTensor), a (2, 1) mesh over two simulated ranks and
+the production meshes, which still raise.
 """
 import numpy as np
 import pytest
@@ -32,10 +34,17 @@ from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.distributed.logical import constrain, logical_sharding_scope  # noqa: E402
 from repro_torch.distributed.sharding import P, PartitionSpec, ShardingRules  # noqa: E402
 from repro_torch.launch.dryrun import DRYRUN_MESH  # noqa: E402
-from repro_torch.launch.mesh import make_mesh, make_production_mesh, mesh_name, single_device_mesh  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    make_mesh,
+    make_production_mesh,
+    mesh_name,
+    simulated_ranks,
+    single_device_mesh,
+)
 from repro_torch.models import abstract_params, cache_axes, cache_spec, model_spec  # noqa: E402
 from repro_torch.models.config import SHAPES  # noqa: E402
 from repro_torch.optim.adamw import AdamWState  # noqa: E402
+from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.runtime.step_builder import build_step, input_specs  # noqa: E402
 
 try:
@@ -228,18 +237,41 @@ def test_constrain_is_a_no_op_on_one_device_and_raises_when_it_would_shard():
         assert constrain(x, ("batch", "seq")) is x
         assert constrain(x, ("batch",)) is x  # rank differs: left alone, as in the reference
     assert seen == [((4, 8), ("batch", "seq"))]
+    plain = torch.zeros(32, 8)
     with logical_sharding_scope(rules_16x16().spec_for):
-        with pytest.raises(NotImplementedError, match="sharded step"):
-            constrain(torch.zeros(32, 8), ("batch", None))
+        assert constrain(plain, ("batch", None)) is plain  # a plain tensor has no placements to change
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    with simulated_ranks(2):
+        mesh = make_mesh((2, 1), ("data", "model"), "cpu")
+        x = distribute_tensor(torch.arange(32.0).reshape(8, 4), mesh.device_mesh, (Replicate(), Replicate()))
+        rules = sharding.make_rules(mesh)
+        with logical_sharding_scope(rules.spec_for):
+            y = constrain(x, ("batch", None))  # a DTensor is redistributed to the spec's placements
+            assert y.placements == (Shard(0), Replicate())
+            assert torch.equal(y.full_tensor().reconcile(), torch.arange(32.0).reshape(8, 4))
+            assert constrain(y, ("batch", None)) is y  # already so placed
+            assert constrain(x, (None, None)) is x  # a spec that shards nothing
 
 
 def test_meshes_past_one_device_raise():
-    with pytest.raises(NotImplementedError, match="sharded step"):
+    # the production meshes are Queue A 10b.2's
+    with pytest.raises(NotImplementedError, match="10b.2"):
         make_production_mesh()
-    with pytest.raises(NotImplementedError, match="sharded step"):
+    with pytest.raises(NotImplementedError, match="10b.2"):
         make_production_mesh(multi_pod=True)
-    with pytest.raises(NotImplementedError, match="sharded step"):
+    # a mesh of two devices needs a process group of two ...
+    with pytest.raises(RuntimeError, match="world size 2"):
         make_mesh((2, 1), ("data", "model"), "cpu")
+    # ... and over one, the train step builds on it; the other kinds are 10b.2's
+    cfg = get_config("qwen3-0.6b")
+    with simulated_ranks(2):
+        two = make_mesh((2, 1), ("data", "model"), "cpu")
+        assert two.device_mesh.shape == (2, 1) and two.device_mesh.mesh_dim_names == ("data", "model")
+        bundle = build_step(cfg, SHAPES[0], two)
+        assert bundle.kind == "train" and len(bundle.in_shardings) == 3
+        with pytest.raises(NotImplementedError, match="10b.2"):
+            build_step(cfg, ShapeConfig("d", 16, 2, "decode"), two)
     cpu = single_device_mesh("cpu")
     assert cpu.device == torch.device("cpu") and cpu.shape == {"data": 1, "model": 1}
     if not torch.cuda.is_available():
@@ -247,5 +279,5 @@ def test_meshes_past_one_device_raise():
             single_device_mesh()  # the card unless the CPU is asked for
     cfg = get_config("qwen3-0.6b")
     wide = type(DRYRUN_MESH)(("data", "model"), (16, 16))
-    with pytest.raises(NotImplementedError, match="sharded step"):
-        build_step(cfg, SHAPES[0], wide)
+    with pytest.raises(NotImplementedError, match="10b.2"):
+        build_step(cfg, SHAPES[0], wide).lower()  # the dry run on a mesh of more than one device
